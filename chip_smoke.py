@@ -28,14 +28,43 @@ Phases, each printing one JSON line:
              run of the same requests gives the prefill / decode split, and
              a profiled run the device time by kernel and the device's idle
              share.
-5. the kernels line, then the contract line (last):
+5. training kernels — the fused A-3PO loss (forward and backward, float32,
+             T = 2300 and 1001, the clip active on both sides, the iw cap
+             active, the mask partial; 1e-6 relative, clip_tok exact) and the
+             token logprob + entropy (forward at the training step's shapes,
+             T 2300, d 1536, V 151,936, bf16, and at V 1000 in float32,
+             against the plain version in float32 on the same values, with a
+             tolerance a reference one vocab tile short fails; backward dh,
+             dw at T 512 against autograd of the plain version), each timed
+             beside its bound, its plain version and, where one exists, a
+             library yardstick.
+6. training — Qwen2.5-1.5B at full width and depth (bf16, layer weights
+             x8) serves two batches of 16 sampled requests (4 prompts x a
+             group of 4, prompts 64-512 tokens, 64 new tokens) through the
+             engine, and the A-3PO trainer takes three steps on them at
+             staleness 0, 1 and 2 (batch A, B, A), checking every metric,
+             the staleness-dependent invariants (alpha = 0: ratio 1, nothing
+             clipped, iw near 1, i.e. the trainer's logp agrees with the
+             engine's behaviour logp; alpha = 1: iw exactly 1), one host
+             transfer per step and both training kernels launched; then one
+             `recompute` step from the state before step 2, for the A-3PO
+             against recompute step time.
+7. training_float32 — the same step in float32 at full width and 4 layers,
+             once through the kernels and once from a copy of the state with
+             both training ops on their plain versions: every metric and
+             every updated parameter agree, and the trainer's logp matches
+             the engine's behaviour logp at staleness 0 to 1e-3.
+8. the kernels line, then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -83,6 +112,44 @@ SCALE = 8.0
 MIN_ARGMAX_AGREE = 0.9
 MIN_DISTINCT_PER_REQUEST = 2.0
 MAX_MEAN_LOGP = -1.0
+
+
+# --- training
+# one minibatch of the training step: 4 sequences x 575 scored positions
+TRAIN_T = 2300
+# fused A-3PO loss kernel vs its plain version: both round every operation
+# as PyTorch's float32 ops do, so only expf may differ (by an ulp or two)
+A3PO_RTOL = 1e-6
+# logprob kernel vs its plain version in float32 on the same values: the
+# kernel accumulates in float32 in another order. logp ~ -12 at V = 151,936
+# and one 128-entry vocab tile moves logz by ~128 / V ~ 8e-4, so this
+# tolerance (2.2e-4 at |ref| = 12) must fail a kernel a tile short: the
+# check holds the kernel against such a reference too.
+LOGPROB_TOL = {"rtol": 1e-5, "atol": 1e-4}
+# logprob backward: dh and dw are rounded to the operand dtype (bf16: a
+# relative 2**-9); |out - ref| <= 1e-5 max|ref| + rtol |ref|
+LOGPROB_BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# training at full width: 4 prompts x a group of 4 sampled completions
+GROUP = 4
+TRAIN_PROMPTS = 4
+TRAIN_MAX_NEW = 64
+TRAIN_PROMPT_PAD = 512
+TRAIN_ENGINE_KW = dict(max_seqs=16, block_size=16, n_blocks=1024,
+                       max_blocks_per_seq=40, prefill_chunk=512,
+                       decode_horizon=8)
+# at staleness 0 the trainer's logp must match the engine's behaviour logp:
+# in bf16 the two run different product shapes (measured up to 0.118 per
+# token in the engine check), so the mean importance weight exp(logp -
+# behav) is held to [0.9, 1.1]; in float32 each logp to 1e-3
+IW_MEAN_BAND = (0.9, 1.1)
+F32_LOGP_TOL = 1e-3
+# float32 step, kernels vs plain versions (tests/test_torch_training.py's
+# tolerances). lr 1e-3 moves the weights well past the tolerance; Adam eps
+# 1e-4 keeps Adam's first (sign-like) step smooth in gradients that the two
+# paths round differently, as in those tests
+STEP_METRIC_TOL = {"rtol": 2e-4, "atol": 1e-5}
+STEP_PARAM_TOL = {"rtol": 2e-4, "atol": 1e-6}
+F32_LAYERS = 4
 
 
 def emit(obj) -> None:
@@ -340,12 +407,17 @@ def _hold(torch, rec, out, ref, tol, wrong_refs):
 
 
 def _times(torch, timer, dname, nbytes, flops, kernel, plain, library, *,
-           plain_iters=20):
+           iters=20, plain_iters=20):
+    """Kernel, plain-version and library times (CUDA events, L2 flushed)
+    beside the bound: the larger of the bytes over the memory rate and the
+    operations over the peak rate of ``dname``. ``library`` may be None
+    (no single PyTorch call computes the function)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
-    return {"ms": timer.ms(kernel), "plain_ms": timer.ms(plain,
-                                                         iters=plain_iters),
-            "library_ms": timer.ms(library),
+    return {"ms": timer.ms(kernel, iters=iters),
+            "plain_ms": timer.ms(plain, iters=plain_iters),
+            "library_ms": None if library is None else timer.ms(library,
+                                                                iters=iters),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -560,16 +632,17 @@ def phase_engine(torch):
     return launches
 
 
-def phase_profile(torch, cfg, params, prompts):
-    """torch.profiler over a short run of the same engine: device time by
-    kernel name and the device's idle share of the wall time. Only events
-    that ran on the device count (the CPU ops that launched them carry the
-    same time again), and busy time is the union of their intervals."""
+def _device_profile(torch, run):
+    """torch.profiler over ``run()`` (which returns its wall seconds):
+    device time by kernel name and the device's idle share of the wall
+    time. Only events that ran on the device count (the CPU ops that
+    launched them carry the same time again), and busy time is the union
+    of their intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, done, elapsed = _serve(torch, cfg, params, prompts)
+        elapsed = run()
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -587,14 +660,488 @@ def phase_profile(torch, cfg, params, prompts):
             end = t1
     rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
                   reverse=True)
-    emit({"phase": "engine_profile", "requests": len(done),
-          "wall_s": elapsed, "device_busy_s": busy_us / 1e6,
-          "device_kernel_sum_s": sum(us for us, _, _ in rows) / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / elapsed,
-          "top_device_kernels": [
-              {"name": k[:90], "device_ms": us / 1e3, "calls": n,
-               "share_of_busy": us / busy_us}
-              for us, k, n in rows[:12]]})
+    return {"wall_s": elapsed, "device_busy_s": busy_us / 1e6,
+            "device_kernel_sum_s": sum(us for us, _, _ in rows) / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / elapsed,
+            "top_device_kernels": [
+                {"name": k[:90], "device_ms": us / 1e3, "calls": n,
+                 "share_of_busy": us / busy_us}
+                for us, k, n in rows[:12]]}
+
+
+def phase_profile(torch, cfg, params, prompts):
+    """The device profile of a short run of the same engine."""
+    done = []
+
+    def run():
+        _, d, elapsed = _serve(torch, cfg, params, prompts)
+        done.extend(d)
+        return elapsed
+    prof = _device_profile(torch, run)
+    emit(dict({"phase": "engine_profile", "requests": len(done)}, **prof))
+
+
+# ---------------------------------------------------------- training kernels
+def _all_counts():
+    """Every kernel's launch counter, by kernel name."""
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.prefill_attn import ops as pops
+    return {"paged_decode_attention": dops.LAUNCHES,
+            "paged_prefill_attention": pops.LAUNCHES,
+            "a3po_loss": aops.LAUNCHES["forward"],
+            "a3po_loss_bwd": aops.LAUNCHES["backward"],
+            "token_logprob_entropy": lops.LAUNCHES["forward"],
+            "token_logprob_entropy_bwd": lops.LAUNCHES["backward"]}
+
+
+def _reset_counts():
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.prefill_attn import ops as pops
+    dops.LAUNCHES = 0
+    pops.LAUNCHES = 0
+    for d in (aops.LAUNCHES, lops.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def _a3po_inputs(torch, g, T):
+    """Tokens where the clip is active on both sides, the iw cap is active
+    and the mask is partial."""
+    def u():
+        return torch.rand(T, generator=g, device="cuda")
+    lp, bl = -u() * 3, -u() * 3
+    al = torch.where(u() < 0.2, 0.0, u())
+    adv = torch.randn(T, generator=g, device="cuda")
+    mask = (u() > 0.3).float()
+    return lp, bl, al, adv, mask
+
+
+def _rel_check(torch, name, outs, refs, exact=()):
+    """|out - ref| <= A3PO_RTOL |ref| everywhere (exactly equal where ref is
+    0), and the outputs named in ``exact`` bit for bit."""
+    worst = 0.0
+    for k, (o, r) in enumerate(zip(outs, refs)):
+        err = (o - r).abs()
+        if not bool((err <= A3PO_RTOL * r.abs()).all()):
+            raise AssertionError(f"{name}: output {k} off by "
+                                 f"{err.max().item()}")
+        worst = max(worst, err.max().item())
+        if k in exact and not torch.equal(o, r):
+            raise AssertionError(f"{name}: output {k} not exact")
+    return worst
+
+
+def phase_training_kernels(torch):
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.a3po_loss.ref import (
+        a3po_loss_bwd_ref,
+        a3po_loss_ref,
+    )
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.logprob.ref import (
+        token_logprob_entropy_bwd_ref,
+        token_logprob_entropy_ref,
+    )
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    # ---- fused A-3PO loss, forward and backward
+    for T in (TRAIN_T, 1001):
+        args = _a3po_inputs(torch, g, T)
+        adv, mask = args[3], args[4]
+        outs = aops.a3po_loss_fused(*args)
+        refs = a3po_loss_ref(*args, clip_eps=0.2, iw_cap=5.0)
+        _, clip, iw, ratio = refs
+        cover = {"clip_high": int(((clip > 0) & (adv > 0)).sum()),
+                 "clip_low": int(((clip > 0) & (adv < 0)).sum()),
+                 "iw_capped": int((iw == 5.0).sum()),
+                 "masked_out": int((mask == 0).sum())}
+        if min(cover.values()) <= 0:
+            raise AssertionError(f"a3po inputs do not cover {cover}")
+        err_f = _rel_check(torch, "a3po_loss", outs, refs, exact=(1,))
+        x = args[0].clone().requires_grad_(True)
+        gl = torch.randn(T, generator=g, device="cuda")
+        aops.a3po_objective(x, *args[1:])[0].backward(gl)
+        ref_g = a3po_loss_bwd_ref(gl, clip, iw, ratio, adv, mask)
+        err_b = _rel_check(torch, "a3po_loss_bwd", [x.grad], [ref_g])
+        rec = {"phase": "kernel", "name": "a3po_loss", "T": T,
+               "cover": cover, "max_abs_err": err_f,
+               "bwd_max_abs_err": err_b, "tol": {"rtol": A3PO_RTOL},
+               "clip_tok_exact": True}
+        if T == TRAIN_T:
+            fwd = _times(torch, timer, "float32", 9 * 4 * T, 0,
+                         lambda: aops.a3po_loss_fused(*args),
+                         lambda: a3po_loss_ref(*args, clip_eps=0.2,
+                                               iw_cap=5.0), None)
+            bwd = _times(torch, timer, "float32", 7 * 4 * T, 0,
+                         lambda: aops._backward_kernel(gl, clip, iw, ratio,
+                                                       adv, mask),
+                         lambda: a3po_loss_bwd_ref(gl, clip, iw, ratio, adv,
+                                                   mask), None)
+            rec.update(fwd=fwd, bwd=bwd)
+            results["a3po_loss"] = dict(fwd, max_abs_err=err_f)
+            results["a3po_loss_bwd"] = dict(bwd, max_abs_err=err_b)
+        emit(rec)
+
+    # ---- token logprob + entropy forward, at the step's shapes (bf16) and
+    # at an odd vocabulary in float32
+    d, V = 1536, 151936
+    for dname, T, Vc in (("bfloat16", TRAIN_T, V), ("float32", 300, 1000)):
+        dtype = getattr(torch, dname)
+        h = torch.randn(T, d, generator=g, device="cuda").to(dtype)
+        emb = (torch.randn(Vc, d, generator=g, device="cuda")
+               * d ** -0.5).to(dtype)
+        w = emb.T  # the tied head: a transposed view, read in place
+        t = torch.randint(0, Vc, (T,), generator=g, device="cuda")
+        with torch.no_grad():
+            lp, en = lops.token_logprob_entropy(h, w, t)
+            h32, w32 = h.float(), w.float()
+            lp_r, en_r = token_logprob_entropy_ref(h32, w32, t)
+            # a reference one vocab tile short (the last, partial one at
+            # V = 1000) must fail the tolerance
+            keep = (Vc - 1) // 128 * 128
+            lp_w, en_w = token_logprob_entropy_ref(h32, w32[:, :keep],
+                                                   t.clamp(max=keep - 1))
+        rec = {"phase": "kernel", "name": "token_logprob_entropy",
+               "dtype": dname, "shape": {"T": T, "d": d, "V": Vc}}
+        sub = {}
+        for label, out, ref, wrong in (("logp", lp, lp_r, lp_w),
+                                       ("entropy", en, en_r, en_w)):
+            sub[label] = {"name": f"token_logprob_entropy.{label}"}
+            _hold(torch, sub[label], out, ref, LOGPROB_TOL,
+                  {"last_vocab_tile_dropped": wrong})
+        rec.update(sub)
+        rec["max_abs_err"] = max(v["max_abs_err"] for v in sub.values())
+        if dname == "bfloat16":
+            nbytes = (T * d * 2 + d * V * 2 + T * 4 + 4 * T * 4)
+            flops = 2 * T * d * V
+
+            def plain():
+                return token_logprob_entropy_ref(h.float(), w.float(), t)
+            with torch.no_grad():
+                rec.update(_times(
+                    torch, timer, dname, nbytes, flops,
+                    lambda: lops.token_logprob_entropy(h, w, t), plain,
+                    lambda: torch.mm(h, w, out_dtype=torch.float32),
+                    iters=10, plain_iters=3))
+            results["token_logprob_entropy"] = rec
+            main = (h, emb, t)
+        emit(rec)
+
+    # ---- backward: dh, dw against autograd of the plain version at T 512
+    h, emb, t = main
+    n = 512
+    gl, ge = torch.randn(2, n, generator=g, device="cuda")
+    hk = h[:n].clone().requires_grad_(True)
+    ek = emb.clone().requires_grad_(True)
+    lp, en = lops.token_logprob_entropy(hk, ek.T, t[:n])
+    ((lp * gl).sum() + (en * ge).sum()).backward()
+    h32 = h[:n].float().requires_grad_(True)
+    e32 = emb.float().requires_grad_(True)
+    lp_r, en_r = token_logprob_entropy_ref(h32, e32.T, t[:n])
+    ((lp_r * gl).sum() + (en_r * ge).sum()).backward()
+    rec = {"phase": "kernel", "name": "token_logprob_entropy_bwd",
+           "dtype": "bfloat16", "shape": {"T": n, "d": d, "V": V}}
+    rtol = LOGPROB_BWD_RTOL["bfloat16"]
+    errs = {}
+    for label, out, ref in (("dh", hk.grad, h32.grad), ("dw", ek.grad,
+                                                        e32.grad)):
+        sub = {"name": f"token_logprob_entropy_bwd.{label}"}
+        _hold(torch, sub, out, ref,
+              {"rtol": rtol, "atol": 1e-5 * ref.abs().max().item()}, {})
+        rec[label] = sub
+        errs[label] = sub["max_abs_err"]
+    rec["max_abs_err"] = max(errs.values())
+    del hk, ek, h32, e32, lp, en, lp_r, en_r
+    # timed at the step's shapes (T 2300): the kernel's logit recompute in
+    # bf16 and the two float32 gradient products
+    with torch.no_grad():
+        lp, en, logz, mu = lops._forward_kernel(h, emb.T, t.to(torch.int32))
+        gl, ge = torch.randn(2, TRAIN_T, generator=g, device="cuda")
+        t32 = t.to(torch.int32)
+        flops_bf16 = 2 * TRAIN_T * d * V
+        t_ops = (flops_bf16 / PEAK_FLOPS["bfloat16"]
+                 + 2 * flops_bf16 / PEAK_FLOPS["float32"]) * 1e3
+        nbytes = (TRAIN_T * d * 2 + d * V * 2 + TRAIN_T * 4 * 5
+                  + TRAIN_T * d * 2 + d * V * 2)
+        times = _times(
+            torch, timer, "bfloat16", nbytes, 0,
+            lambda: lops._backward_kernel(h, emb.T, t32, logz, mu, gl, ge,
+                                          True, True),
+            lambda: token_logprob_entropy_bwd_ref(h, emb.T, t32, logz, mu,
+                                                  gl, ge),
+            None, iters=5, plain_iters=2)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    times.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 flops={"bfloat16": flops_bf16, "float32": 2 * flops_bf16},
+                 timed_T=TRAIN_T)
+    rec.update(times)
+    results["token_logprob_entropy_bwd"] = rec
+    emit(rec)
+    return results
+
+
+# ------------------------------------------------------------------ training
+def _serve_group_batch(torch, cfg, params, seed, np):
+    """4 prompts x a group of 4 sampled completions through the engine ->
+    (RolloutBatch, rewards, finished requests)."""
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.rollout.continuous import ContinuousBatchingEngine
+    from repro_torch.rollout.engine import rollout_batch
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(4, cfg.vocab_size, size=int(rng.integers(
+        64, TRAIN_PROMPT_PAD + 1))).astype(np.int32)
+        for _ in range(TRAIN_PROMPTS)]
+    eng = ContinuousBatchingEngine(cfg, device="cuda", greedy=False,
+                                   rl=RLConfig(temperature=1.0, top_p=1.0),
+                                   **TRAIN_ENGINE_KW)
+    for p in prompts:
+        for _ in range(GROUP):
+            eng.submit(p, max_new=TRAIN_MAX_NEW)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    done = sorted(eng.run(params, gen), key=lambda r: r.rid)
+    if len(done) != TRAIN_PROMPTS * GROUP:
+        raise AssertionError(f"{len(done)} requests finished")
+    for i in range(0, len(done), GROUP):
+        gens = {tuple(r.generated) for r in done[i: i + GROUP]}
+        if len(gens) < GROUP:
+            raise AssertionError("two sampled group members are identical")
+    rb = rollout_batch(done, TRAIN_PROMPT_PAD, TRAIN_MAX_NEW, version=0)
+    # A random model scores 0 on any verifier, which would make every
+    # advantage 0 and the update vacuous: rewards are seeded Bernoulli(0.5)
+    # draws, one per sequence.
+    rewards = rng.binomial(1, 0.5, size=len(done)).astype(np.float32)
+    return rb, rewards, done
+
+
+def _check_metrics(np, m, keys):
+    bad = {k: m[k] for k in keys if not np.isfinite(m[k])}
+    if bad or m["nonfinite"] != 0 or not m["grad_norm"] > 0:
+        raise AssertionError(f"training metrics: {m}")
+
+
+def _changed(torch, old, new):
+    """Elements changed, over all leaves."""
+    from repro_torch.training.optimizer import flatten
+    a, b = flatten(old), flatten(new)
+    return sum(int((a[k] != b[k]).sum()) for k in a), \
+        sum(a[k].numel() for k in a)
+
+
+def phase_training(torch):
+    import numpy as np
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import (
+        Trainer,
+        TrainState,
+        adam_init,
+        assemble_train_batch,
+    )
+    from repro_torch.training.trainer import METRIC_KEYS
+
+    cfg = get_config("qwen2.5-1.5b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_blocks(torch, params, SCALE)
+    t0 = time.perf_counter()
+    rb_a, rew_a, done_a = _serve_group_batch(torch, cfg, params, 10, np)
+    rb_b, rew_b, _ = _serve_group_batch(torch, cfg, params, 11, np)
+    serve_s = time.perf_counter() - t0
+    batch_a = assemble_train_batch([rb_a], rew_a, device="cuda")
+    batch_b = assemble_train_batch([rb_b], rew_b, device="cuda")
+    rl = RLConfig(group_size=GROUP, num_minibatches=4)
+    trainer = Trainer(cfg, rl, "a3po")
+    state = TrainState(params, adam_init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    torch.cuda.empty_cache()
+
+    def timed_step(tr, st, batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = tr.step(st, batch)
+        torch.cuda.synchronize()
+        return new, m, {"seconds": time.perf_counter() - t0,
+                        "prox_time_s": m["prox_time_s"],
+                        "tokens": m["tokens"],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated()
+                        / 1e9}
+
+    steps = []
+    saved = None
+    _reset_counts()
+    for i, (batch, d) in enumerate(((batch_a, 0), (batch_b, 1),
+                                    (batch_a, 2))):
+        if i == 1:  # the state before step 2, for the recompute step
+            saved = TrainState(state.params, copy.deepcopy(state.opt),
+                               state.version.clone())
+        new, m, rec = timed_step(trainer, state, batch)
+        _check_metrics(np, m, METRIC_KEYS)
+        changed, total = _changed(torch, state.params, new.params)
+        rec.update(step=i + 1, algo="a3po", staleness=d,
+                   params_changed=changed, params_total=total,
+                   host_syncs=trainer.last_host_syncs,
+                   metrics={k: m[k] for k in METRIC_KEYS})
+        emit(dict(phase="training_step", **rec))
+        if changed == 0 or trainer.last_host_syncs != 1 \
+                or m["staleness_mean"] != d:
+            raise AssertionError(f"training step {i + 1}: {rec}")
+        if d == 0 and not (m["ratio_mean"] == 1.0
+                           and m["clipped_frac"] == 0.0
+                           and IW_MEAN_BAND[0] <= m["iw_mean"]
+                           <= IW_MEAN_BAND[1]):
+            raise AssertionError(f"staleness 0 invariants: {m}")
+        if d == 1 and m["iw_mean"] != 1.0:
+            raise AssertionError(f"staleness 1: iw_mean {m['iw_mean']}")
+        steps.append(rec)
+        state = new
+    launches = dict(_all_counts())
+    train_kernels = ("a3po_loss", "a3po_loss_bwd", "token_logprob_entropy",
+                     "token_logprob_entropy_bwd")
+    if min(launches[k] for k in train_kernels) <= 0:
+        raise AssertionError(f"a training kernel was not launched: "
+                             f"{launches}")
+    del state, new
+
+    # step 2 again from copies of the state before it, a3po and recompute
+    # in turns (a3po, recompute, recompute, a3po): the same state, batch and
+    # device, so the two differ only in the algorithm
+    trainers = {"a3po": trainer, "recompute": Trainer(cfg, rl, "recompute")}
+    turns = {"a3po": [], "recompute": []}
+    for algo in ("a3po", "recompute", "recompute", "a3po"):
+        st = TrainState(saved.params, copy.deepcopy(saved.opt),
+                        saved.version.clone())
+        _, m, rec = timed_step(trainers[algo], st, batch_b)
+        _check_metrics(np, m, METRIC_KEYS)
+        syncs = trainers[algo].last_host_syncs
+        if syncs != (2 if algo == "recompute" else 1):
+            raise AssertionError(f"{algo} host syncs {syncs}")
+        rec.update(step=2, algo=algo, staleness=1, host_syncs=syncs,
+                   turn=len(turns["a3po"]) + len(turns["recompute"]) + 1,
+                   metrics={k: m[k] for k in METRIC_KEYS})
+        emit(dict(phase="training_step", **rec))
+        turns[algo].append(rec["seconds"])
+        del st, _
+
+    def profiled_step():
+        st = TrainState(saved.params, copy.deepcopy(saved.opt),
+                        saved.version.clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(st, batch_b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    prof = _device_profile(torch, profiled_step)
+    emit(dict({"phase": "training_profile", "algo": "a3po"}, **prof))
+    a3po_s = sum(turns["a3po"]) / 2
+    recompute_s = sum(turns["recompute"]) / 2
+    emit({"phase": "training", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": "bfloat16", "layer_weight_scale": SCALE,
+          "serve_two_batches_s": serve_s, "batch": list(batch_a.tokens.shape),
+          "launches_three_a3po_steps": launches,
+          "step2_turns_s": turns, "a3po_step2_mean_s": a3po_s,
+          "recompute_step2_mean_s": recompute_s,
+          "a3po_over_recompute": a3po_s / recompute_s})
+    del saved
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_training_ops():
+    """Both training ops on their plain versions (``use_kernel=False``), as
+    a check: the training path itself never passes it."""
+    from repro_torch.core import objective
+    from repro_torch.training import trainer
+    saved = objective.a3po_objective, trainer.token_logprob_entropy
+    objective.a3po_objective = functools.partial(saved[0], use_kernel=False)
+    trainer.token_logprob_entropy = functools.partial(saved[1],
+                                                      use_kernel=False)
+    try:
+        yield
+    finally:
+        objective.a3po_objective, trainer.token_logprob_entropy = saved
+
+
+def phase_training_f32(torch):
+    import numpy as np
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import (
+        Trainer,
+        TrainState,
+        adam_init,
+        assemble_train_batch,
+        score_tokens,
+    )
+    from repro_torch.training.optimizer import flatten
+    from repro_torch.training.trainer import METRIC_KEYS
+
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b"), dtype="float32",
+                              num_layers=F32_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda", dtype=torch.float32,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_blocks(torch, params, SCALE)
+    rb, rewards, _ = _serve_group_batch(torch, cfg, params, 12, np)
+    batch = assemble_train_batch([rb], rewards, device="cuda")
+    # at staleness 0 the trainer scores what the engine sampled
+    logp = score_tokens(params, cfg, batch.tokens)[0]
+    mask = batch.response_mask > 0
+    logp_err = (logp - batch.behav_logp)[mask].abs().max().item()
+    if logp_err > F32_LOGP_TOL:
+        raise AssertionError(f"trainer vs engine logp: {logp_err}")
+    rl = RLConfig(group_size=GROUP, num_minibatches=4, learning_rate=1e-3,
+                  adam_eps=1e-4)
+    state = TrainState(params, adam_init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    clone = copy.deepcopy(state)
+    _reset_counts()
+    s_k, m_k = Trainer(cfg, rl, "a3po").step(state, batch)
+    kernel_launches = dict(_all_counts())
+    with _plain_training_ops():
+        s_p, m_p = Trainer(cfg, rl, "a3po").step(clone, batch)
+    if _all_counts() != kernel_launches or \
+            kernel_launches["a3po_loss"] == 0 or \
+            kernel_launches["token_logprob_entropy"] == 0:
+        raise AssertionError(f"kernel / plain step launches: "
+                             f"{kernel_launches} then {_all_counts()}")
+    _check_metrics(np, m_k, METRIC_KEYS)
+    metric_err = {}
+    for k in METRIC_KEYS:
+        metric_err[k] = abs(m_k[k] - m_p[k])
+        if metric_err[k] > STEP_METRIC_TOL["atol"] \
+                + STEP_METRIC_TOL["rtol"] * abs(m_p[k]):
+            raise AssertionError(f"float32 step metric {k}: {m_k[k]} vs "
+                                 f"{m_p[k]}")
+    pk, pp, p0 = flatten(s_k.params), flatten(s_p.params), flatten(params)
+    worst, moved = 0.0, 0.0
+    for k in pk:
+        err = (pk[k] - pp[k]).abs()
+        tol = STEP_PARAM_TOL["atol"] + STEP_PARAM_TOL["rtol"] * pp[k].abs()
+        worst = max(worst, (err / tol).max().item())
+        moved = max(moved, (pp[k] - p0[k]).abs().max().item())
+    if worst > 1.0:
+        raise AssertionError(f"float32 step params: worst err/tol {worst}")
+    emit({"phase": "training_float32", "layers": F32_LAYERS,
+          "trainer_vs_engine_logp_max_abs_err": logp_err,
+          "logp_tol": F32_LOGP_TOL, "metrics_kernel": m_k,
+          "metric_abs_err": metric_err, "metric_tol": STEP_METRIC_TOL,
+          "param_worst_err_over_tol": worst, "param_tol": STEP_PARAM_TOL,
+          "param_max_update": moved, "launches_kernel_step":
+          kernel_launches})
 
 
 def main() -> int:
@@ -604,12 +1151,30 @@ def main() -> int:
     with torch.no_grad():
         kernels = phase_kernels(torch)
         launches = phase_engine(torch)
+    torch.cuda.empty_cache()
+    kernels.update(phase_training_kernels(torch))
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_training(torch).items()
+                     if k not in launches})
+    phase_training_f32(torch)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),
         "paged_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill_attn.cu",
-        "src/repro/kernels/prefill_attn/kernel.py:85")}
+        "src/repro/kernels/prefill_attn/kernel.py:85"),
+        "a3po_loss": (
+        "src/repro_torch/kernels/csrc/a3po_loss.cu",
+        "src/repro/kernels/a3po_loss/kernel.py:44"),
+        "a3po_loss_bwd": (
+        "src/repro_torch/kernels/csrc/a3po_loss.cu",
+        "src/repro/kernels/a3po_loss/ops.py:45"),
+        "token_logprob_entropy": (
+        "src/repro_torch/kernels/csrc/token_logprob_entropy.cu",
+        "src/repro/kernels/logprob/kernel.py:87"),
+        "token_logprob_entropy_bwd": (
+        "src/repro_torch/kernels/csrc/token_logprob_entropy.cu",
+        "src/repro/kernels/logprob/kernel.py:87")}
     line = []
     for name, (source, replaces) in src.items():
         k = kernels[name]

@@ -1,0 +1,53 @@
+"""ctypes binding of the CUDA token-logprob + entropy kernels
+(``csrc/token_logprob_entropy.cu``), the Hopper counterpart of
+``repro.kernels.logprob.kernel.token_logprob_entropy_pallas`` and of the
+autodiff of its reference.
+
+The library is built and loaded on first call, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+from repro_torch.kernels import _build
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# tile sizes of the kernels (BM tokens x BN vocab entries per tile)
+BM, BN = 64, 128
+# token tiles x vocab ranges the forward aims to put in flight: a few
+# blocks for each of the card's 132 SMs
+TARGET_BLOCKS = 1056
+
+
+def split_plan(rows: int, vocab: int):
+    """(splits, tiles_per_split) of the forward's split-V grid: every range
+    holds at least one vocab tile."""
+    n_tiles = -(-vocab // BN)
+    t_blocks = max(-(-rows // BM), 1)
+    splits = min(n_tiles, max(1, -(-TARGET_BLOCKS // t_blocks)))
+    per = -(-n_tiles // splits)
+    return -(-n_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def forward_fn():
+    """token_logprob_entropy_forward(h, w, targets, part, logp, ent, logz,
+    mean_logit, rows, d, V, sk, sn, splits, tiles_per_split, dtype, vec,
+    stream) -> cudaError_t."""
+    fn = _build.load("token_logprob_entropy").token_logprob_entropy_forward
+    fn.argtypes = [_P] * 8 + [_I] * 3 + [_L] * 2 + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def dlogits_fn():
+    """token_logprob_entropy_dlogits(h, w, targets, logz, mean_logit,
+    g_logp, g_ent, dl, rows, d, V, sk, sn, dtype, vec, stream) ->
+    cudaError_t; a null cotangent counts as zero."""
+    fn = _build.load("token_logprob_entropy").token_logprob_entropy_dlogits
+    fn.argtypes = [_P] * 8 + [_I] * 3 + [_L] * 2 + [_I] * 2 + [_P]
+    fn.restype = _I
+    return fn

@@ -1,15 +1,19 @@
 """Dense decoder LM (``repro.models.model``, ``arch_type="dense"`` only).
 
 Public entry points: ``model_spec`` / ``init_params`` and the
-whole-sequence reference ``forward_hidden`` / ``forward_logits`` that the
-serving engine is checked against. Layers are a Python loop over the
-stacked leading axis (the reference scans it).
+whole-sequence ``forward_hidden`` / ``forward_logits``: the training
+forward, and the reference the serving engine is checked against. Layers
+are a Python loop over the stacked leading axis (the reference scans it),
+each stacked leaf unbound once per forward; with ``cfg.remat`` and
+gradients enabled each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's remat does.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -24,8 +28,8 @@ from repro_torch.models.params import (
     ParamTree,
     SpecTree,
     init_from_specs,
-    layer_slice,
     stack_specs,
+    unstack_layers,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,15 +65,16 @@ def model_spec(cfg: ModelConfig) -> SpecTree:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", dtype: Optional[torch.dtype] = None
-                ) -> ParamTree:
+                device="cuda", dtype: Optional[torch.dtype] = None,
+                requires_grad: bool = False) -> ParamTree:
     """Seeded random weights with the reference's stds. ``generator``
     defaults to a fresh one seeded 0 on ``device``."""
     device = require_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return init_from_specs(model_spec(cfg), generator, device=device,
-                           dtype=dtype or torch_dtype(cfg))
+                           dtype=dtype or torch_dtype(cfg),
+                           requires_grad=requires_grad)
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -81,9 +86,15 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for li in range(cfg.num_layers):
-        x = blocks.attn_block_full(layer_slice(params["blocks"], li), x, cfg,
-                                   positions, pad_mask)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+        if remat:
+            # no randomness in a layer, so no RNG state to stash
+            x = checkpoint(blocks.attn_block_full, lp, x, cfg, positions,
+                           pad_mask, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = blocks.attn_block_full(lp, x, cfg, positions, pad_mask)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

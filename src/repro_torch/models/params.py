@@ -6,13 +6,15 @@ the JAX package's layouts (``wq [L,d,H,hd]``, ``wo [L,H,hd,d]``, layer axis
 first), so the einsums of the port read like the reference's.
 
 ``ParamTree`` is the ``nn.Module`` that holds them: one submodule per dict
-level, one frozen ``nn.Parameter`` per leaf, and ``tree["blocks"]["attn"]``
-indexing, so the functional model code takes either it or a plain dict.
+level, one ``nn.Parameter`` per leaf (frozen unless built with
+``requires_grad=True``, as the trainer builds them), and
+``tree["blocks"]["attn"]`` indexing, so the functional model code takes
+either it or a plain dict.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,18 +74,20 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
 
 
 class ParamTree(nn.Module):
-    """Nested weights: a submodule per dict level, a frozen parameter per
-    leaf. ``tree[key]`` returns the child (subtree or tensor)."""
+    """Nested weights: a submodule per dict level, a parameter per leaf
+    (trainable only with ``requires_grad=True``). ``tree[key]`` returns the
+    child (subtree or tensor)."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], requires_grad: bool = False):
         super().__init__()
         for k in sorted(tree):
             v = tree[k]
             if isinstance(v, Mapping):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, requires_grad))
             else:
                 self.register_parameter(
-                    k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
+                    k, nn.Parameter(torch.as_tensor(v),
+                                    requires_grad=requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -96,7 +100,8 @@ class ParamTree(nn.Module):
 
 
 def init_from_specs(specs: SpecTree, generator: torch.Generator, *,
-                    device="cuda", dtype=torch.bfloat16) -> ParamTree:
+                    device="cuda", dtype=torch.bfloat16,
+                    requires_grad: bool = False) -> ParamTree:
     """Draw every leaf in sorted-path order from ``generator`` (in float32
     on the generator's device), scale by the reference's std, then cast to
     ``dtype`` on ``device``. The values are not the JAX package's (its
@@ -108,11 +113,12 @@ def init_from_specs(specs: SpecTree, generator: torch.Generator, *,
             sub = sub.setdefault(p, {})
         sub[path[-1]] = _init_leaf(spec, generator).to(device=device,
                                                        dtype=dtype)
-    return ParamTree(out)
+    return ParamTree(out, requires_grad)
 
 
 def from_jax(params: Mapping[str, Any], *, device="cuda",
-             dtype: Optional[torch.dtype] = None) -> ParamTree:
+             dtype: Optional[torch.dtype] = None,
+             requires_grad: bool = False) -> ParamTree:
     """Weights from the JAX package, as numpy arrays, into a ``ParamTree``.
 
     Takes either the flat-key format of ``repro.training.checkpoints``
@@ -135,14 +141,20 @@ def from_jax(params: Mapping[str, Any], *, device="cuda",
             node = node.setdefault(p, {})
         t = torch.from_numpy(np.array(val, copy=True))
         node[parts[-1]] = t.to(device=device, dtype=dtype or t.dtype)
-    return ParamTree(tree)
+    return ParamTree(tree, requires_grad)
 
 
-def layer_slice(stacked: Mapping[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked block tree, as a nested dict of views."""
-    out = {}
+def unstack_layers(stacked: Mapping[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` layers of a stacked block tree, as nested dicts of views.
+
+    Each stacked leaf is unbound once: under autograd the backward of an
+    unbind is one stack per leaf, where indexing layer by layer would make a
+    full-size zero-filled gradient for every leaf in every layer."""
+    out: List[Dict[str, Any]] = [{} for _ in range(n)]
     for k in stacked:
         v = stacked[k]
-        out[k] = (layer_slice(v, i) if isinstance(v, (Mapping, ParamTree))
-                  else v[i])
+        parts = (unstack_layers(v, n) if isinstance(v, (Mapping, ParamTree))
+                 else torch.unbind(v, 0))
+        for layer, part in zip(out, parts):
+            layer[k] = part
     return out

@@ -8,6 +8,10 @@ through the chunked prefill lane (segment-packed chunks of at most
 either one token per ``step`` or ``decode_horizon`` tokens per
 ``step_horizon`` with a single device-to-host drain per horizon.
 
+The entry points (``run``, ``step``, ``step_horizon``, ``prefill_step``)
+run under ``torch.no_grad()``: serving weights that require gradients (the
+trainer's) records no autograd graph.
+
 Attention always takes the paged path: every decoded token and every
 prefill chunk attends through the block table with the paged kernels
 (``paged_decode_attention_op`` / ``paged_prefill_attention_op``), on the
@@ -34,7 +38,7 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.model import require_device, torch_dtype
-from repro_torch.models.params import layer_slice
+from repro_torch.models.params import unstack_layers
 from repro_torch.obs.tracing import annotate, span
 from repro_torch.rollout import paged_cache as pc
 from repro_torch.rollout.sampler import (
@@ -76,7 +80,7 @@ AppendAttend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 
 
 def _layers(params, cfg: ModelConfig) -> List[dict]:
-    return [layer_slice(params["blocks"], i) for i in range(cfg.num_layers)]
+    return unstack_layers(params["blocks"], cfg.num_layers)
 
 
 def _token_layer_stack(params, layers: List[dict], cfg: ModelConfig,
@@ -387,6 +391,7 @@ class ContinuousBatchingEngine:
         self._logits_version[slot] = version
         self._sync_mirrors()
 
+    @torch.no_grad()
     def prefill_step(self, params, version: int = 0,
                      max_chunks: Optional[int] = None) -> int:
         """Run up to ``max_chunks`` chunk launches over mid-prefill slots
@@ -532,6 +537,7 @@ class ContinuousBatchingEngine:
             raise ValueError("sampled decoding needs a torch.Generator")
         return generator
 
+    @torch.no_grad()
     def step(self, params, generator: Optional[torch.Generator] = None,
              version: int = 0) -> List[Request]:
         """One decode step for every active slot; returns finished reqs.
@@ -593,6 +599,7 @@ class ContinuousBatchingEngine:
                 self._logits_version[slot] = version
         return finished
 
+    @torch.no_grad()
     def step_horizon(self, params,
                      generator: Optional[torch.Generator] = None,
                      version: int = 0) -> List[Request]:
@@ -688,6 +695,7 @@ class ContinuousBatchingEngine:
         return req
 
     # ------------------------------------------------------------------ run
+    @torch.no_grad()
     def run(self, params, generator: Optional[torch.Generator] = None,
             max_steps: int = 10_000) -> List[Request]:
         """Drive admission + decode to completion. With ``decode_horizon``

@@ -1,31 +1,50 @@
-"""Paged-attention kernels of the PyTorch port against the JAX package.
+"""Kernels of the PyTorch port against the JAX package.
 
 The port's plain versions (``repro_torch.kernels.*.ref``) run the same
 numpy-made inputs as the JAX Pallas kernels (interpret mode) and the JAX
-references, over sweeps that mirror ``tests/test_kernels.py``: GQA / MHA /
-MQA, shuffled block tables with unmapped (-1) entries, packed prefill
-chunks with padding rows. float32, tolerance 2e-5. The CUDA kernels
-themselves run only on a card (``cuda`` marker).
+references, over sweeps that mirror ``tests/test_kernels.py``: for paged
+attention GQA / MHA / MQA, shuffled block tables with unmapped (-1)
+entries, packed prefill chunks with padding rows; for the training kernels
+(fused A-3PO loss, token logprob + entropy) their forwards, and their
+backwards through the autograd ``Function``s against ``jax.grad``.
+float32, tolerance 2e-5 unless stated. The CUDA kernels themselves run
+only on a card (``cuda`` marker).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from repro.kernels.a3po_loss.kernel import a3po_loss_pallas
+from repro.kernels.a3po_loss.ops import a3po_objective as jax_a3po_objective
+from repro.kernels.a3po_loss.ref import a3po_loss_ref as jax_a3po_ref
 from repro.kernels.decode_attn.paged_kernel import (
     paged_decode_attention_pallas,
 )
 from repro.kernels.decode_attn.ref import (
     paged_decode_attention_ref as jax_decode_ref,
 )
+from repro.kernels.logprob.kernel import token_logprob_entropy_pallas
+from repro.kernels.logprob.ref import (
+    token_logprob_entropy_ref as jax_logprob_ref,
+)
 from repro.kernels.prefill_attn.kernel import paged_prefill_attention_pallas
 from repro.kernels.prefill_attn.ref import (
     paged_prefill_attention_ref as jax_prefill_ref,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.a3po_loss import ops as aops
+from repro_torch.kernels.a3po_loss.ref import a3po_loss_bwd_ref, a3po_loss_ref
 from repro_torch.kernels.decode_attn import ops as dops
 from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+from repro_torch.kernels.logprob import ops as lops
+from repro_torch.kernels.logprob.ref import (
+    token_logprob_entropy_bwd_ref,
+    token_logprob_entropy_ref,
+    token_logprob_entropy_stats_ref,
+)
 from repro_torch.kernels.prefill_attn import ops as pops
 from repro_torch.kernels.prefill_attn.ref import paged_prefill_attention_ref
 
@@ -201,13 +220,14 @@ def test_kernel_input_checks(case):
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
-    """Both kernel sources are found; the library name carries a digest of
+    """Every kernel source is found; the library name carries a digest of
     sources and flags; without nvcc the build raises instead of falling
     back to anything."""
     srcs = _build.sources()
-    assert set(srcs) == {"paged_decode_attn", "paged_prefill_attn"}
+    assert set(srcs) == {"paged_decode_attn", "paged_prefill_attn",
+                         "a3po_loss", "token_logprob_entropy"}
     targets = {_build._target(n).name for n in srcs}
-    assert len(targets) == 2
+    assert len(targets) == 4
     assert all(t.startswith("lib") and t.endswith(".so") for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -269,6 +289,183 @@ def test_bf16_tolerance_sees_a_missing_key(kernel):
             torch.bfloat16), ref, cs.TOL["bfloat16"], {})
 
 
+# ------------------------------------------------------------ training kernels
+def _a3po_inputs(seed, T):
+    """Tokens where the clip is active on both sides, the iw cap is active
+    and the mask is partial (logp, behav in [-3, 0], alpha in [0, 1] with
+    some zeros, advantages of both signs)."""
+    rng = np.random.default_rng(seed)
+    lp = (-rng.random(T) * 3).astype(np.float32)
+    bl = (-rng.random(T) * 3).astype(np.float32)
+    al = rng.random(T).astype(np.float32)
+    al[rng.random(T) < 0.2] = 0.0
+    adv = rng.standard_normal(T).astype(np.float32)
+    mask = (rng.random(T) > 0.3).astype(np.float32)
+    return lp, bl, al, adv, mask
+
+
+@pytest.mark.parametrize("T", [64, 1000, 4096])
+def test_a3po_loss_ref_vs_jax(T):
+    """Port plain version == JAX Pallas kernel (interpret) == JAX ref."""
+    args = _a3po_inputs(T, T)
+    out = a3po_loss_ref(*_t(*args), clip_eps=0.2, iw_cap=5.0)
+    j = [jnp.asarray(a) for a in args]
+    o_pallas = a3po_loss_pallas(*j, bt=128, interpret=True)
+    o_ref = jax_a3po_ref(*j, clip_eps=0.2, iw_cap=5.0)
+    for a, b, c in zip(out, o_pallas, o_ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=TOL,
+                                   atol=TOL)
+    np.testing.assert_array_equal(out[1].numpy(), np.asarray(o_pallas[1]))
+
+
+@pytest.mark.parametrize("shape", [(1000,), (4, 33)])
+def test_a3po_objective_grad_vs_jax(shape):
+    """The port's ``Function`` (analytic backward, plain version on the CPU)
+    against ``jax.grad`` of the JAX ``a3po_objective`` (custom_vjp over the
+    Pallas kernel in interpret mode), with a random cotangent."""
+    n = int(np.prod(shape))
+    lp, bl, al, adv, mask = (a.reshape(shape)
+                             for a in _a3po_inputs(7, n))
+    ct = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+
+    def jloss(x):
+        return jnp.sum(jax_a3po_objective(x, bl, al, adv, mask)[0] * ct)
+
+    g_jax = jax.grad(jloss)(jnp.asarray(lp))
+    x = torch.from_numpy(lp.copy()).requires_grad_(True)
+    outs = aops.a3po_objective(x, *_t(bl, al, adv, mask))
+    (outs[0] * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_jax), rtol=1e-5,
+                               atol=1e-7)
+    assert not any(o.requires_grad for o in outs[1:])
+    # the analytic backward is the gradient of the differentiable ref
+    x2 = torch.from_numpy(lp.copy()).requires_grad_(True)
+    ref = a3po_loss_ref(x2.reshape(-1), *(t.reshape(-1) for t in _t(
+        bl, al, adv, mask)), clip_eps=0.2, iw_cap=5.0)
+    (ref[0] * torch.from_numpy(ct).reshape(-1)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), x2.grad.reshape(shape).numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+LOGPROB_SHAPES = [(16, 32, 50), (300, 130, 1000), (64, 512, 513),
+                  (7, 48, 22), (128, 64, 4096)]
+
+
+def _logprob_inputs(seed, T, d, V):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((T, d)).astype(np.float32)
+    w = (rng.standard_normal((d, V)) * 0.05).astype(np.float32)
+    t = rng.integers(0, V, size=T).astype(np.int32)
+    return h, w, t
+
+
+@pytest.mark.parametrize("T,d,V", LOGPROB_SHAPES)
+def test_logprob_ref_vs_jax(T, d, V):
+    """Port plain version == JAX Pallas kernel (interpret) == JAX ref."""
+    h, w, t = _logprob_inputs(T + V, T, d, V)
+    lp, en = token_logprob_entropy_ref(*_t(h, w, t))
+    j = [jnp.asarray(a) for a in (h, w, t)]
+    lp_k, en_k = token_logprob_entropy_pallas(*j, bt=64, bv=128, bd=64,
+                                              interpret=True)
+    lp_r, en_r = jax_logprob_ref(*j)
+    for ours, theirs in ((lp, lp_k), (en, en_k), (lp, lp_r), (en, en_r)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("T,d,V", LOGPROB_SHAPES[:3])
+@pytest.mark.parametrize("cotangents", ["both", "logp_only"])
+def test_logprob_grad_vs_jax(T, d, V, cotangents):
+    """The ``Function``'s analytic backward (``token_logprob_entropy_bwd_ref``
+    on the CPU) against ``jax.grad`` of the JAX ref w.r.t. hidden and w,
+    with random cotangents on both outputs (or on logp alone: the entropy
+    cotangent is then None and counts as zero). w enters as the transposed
+    view a tied embedding gives."""
+    h, w, t = _logprob_inputs(3 * T, T, d, V)
+    rng = np.random.default_rng(4)
+    g_lp = rng.standard_normal(T).astype(np.float32)
+    g_en = rng.standard_normal(T).astype(np.float32) \
+        if cotangents == "both" else np.zeros(T, np.float32)
+
+    def jloss(hh, ww):
+        lp, en = jax_logprob_ref(hh, ww, jnp.asarray(t))
+        return jnp.sum(lp * g_lp) + jnp.sum(en * g_en)
+
+    gh, gw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    th = torch.from_numpy(h).requires_grad_(True)
+    emb = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_(True)
+    lp, en = lops.token_logprob_entropy(th, emb.T, torch.from_numpy(t))
+    loss = (lp * torch.from_numpy(g_lp)).sum()
+    if cotangents == "both":
+        loss = loss + (en * torch.from_numpy(g_en)).sum()
+    loss.backward()
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(gh), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(emb.grad.numpy().T, np.asarray(gw),
+                               rtol=TOL, atol=TOL)
+
+
+def test_logprob_bwd_ref_is_autograd_of_ref():
+    """The analytic backward equals autograd of the differentiable plain
+    version (float32 and bf16 operands; cotangents cast back to each)."""
+    h, w, t = _logprob_inputs(5, 24, 40, 77)
+    rng = np.random.default_rng(6)
+    g_lp, g_en = (torch.from_numpy(rng.standard_normal(24).astype(np.float32))
+                  for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        th, tw = (x.to(dtype).requires_grad_(True) for x in _t(h, w))
+        lp, en = token_logprob_entropy_ref(th, tw, torch.from_numpy(t))
+        ((lp * g_lp).sum() + (en * g_en).sum()).backward()
+        _, _, logz, mu = token_logprob_entropy_stats_ref(th, tw,
+                                                         torch.from_numpy(t))
+        dh, dw = token_logprob_entropy_bwd_ref(th.detach(), tw.detach(),
+                                               torch.from_numpy(t), logz,
+                                               mu, g_lp, g_en)
+        assert dh.dtype == dtype and dw.dtype == dtype
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(dh.float(), th.grad.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(dw.float(), tw.grad.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_training_ops_on_cpu_count_no_launches():
+    """On CPU tensors both training ops take their plain versions, forward
+    and backward, and never touch a kernel or its launch counter."""
+    a0, l0 = dict(aops.LAUNCHES), dict(lops.LAUNCHES)
+    lp, bl, al, adv, mask = _t(*_a3po_inputs(9, 50))
+    lp.requires_grad_(True)
+    out = aops.a3po_objective(lp, bl, al, adv, mask)
+    out[0].sum().backward()
+    aops.a3po_loss_fused(lp.detach(), bl, al, adv, mask)
+    h, w, t = _t(*_logprob_inputs(10, 9, 16, 30))
+    h.requires_grad_(True)
+    lpv, en = lops.token_logprob_entropy(h, w, t)
+    (lpv.sum() + en.sum()).backward()
+    assert (aops.LAUNCHES, lops.LAUNCHES) == (a0, l0)
+
+
+def test_logprob_input_checks():
+    """The logprob wrapper's checks reject what the kernel does not take
+    (run before any launch, so testable on the CPU) and report the layout
+    of a tied embedding's transposed view and of a [d, V] matrix."""
+    h = torch.zeros(5, 16)
+    t = torch.zeros(5, dtype=torch.int32)
+    emb = torch.zeros(30, 16)
+    assert lops.check_inputs(h, emb.T, t) == (0, 1, 16, 0)
+    assert lops.check_inputs(h, torch.zeros(16, 30), t) == (0, 30, 1, 0)
+    assert lops.check_inputs(h.bfloat16(), emb.bfloat16().T, t)[3] == 1
+    for bad in [(h, emb.T.bfloat16(), t),            # mixed dtypes
+                (h, emb.T, t.long()),                # int64 targets
+                (h, emb[:, ::2].T, t),               # no unit stride
+                (h, emb.T[:8], t),                   # depth mismatch
+                (h.T.contiguous().T, emb.T, t)]:     # non-contiguous hidden
+        with pytest.raises(ValueError):
+            lops.check_inputs(*bad)
+
+
 # --------------------------------------------------------------- on a card
 @pytest.fixture
 def cuda_device():
@@ -310,3 +507,78 @@ def test_cuda_kernels_vs_plain(cuda_device, dtype, rtol, atol, H, KV, hd,
     torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
     assert bool((out[ts < 0] == 0).all())
     assert (dops.LAUNCHES - d0, pops.LAUNCHES - p0) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2300, 1001])
+def test_cuda_a3po_loss_vs_plain(cuda_device, T):
+    """Fused A-3PO loss forward and backward kernels against their plain
+    versions on the card, float32: within 1e-6 relative, clip_tok exact,
+    with the clip active on both sides, the iw cap active and the mask
+    partial; one launch each."""
+    args = [x.to(cuda_device) for x in _t(*_a3po_inputs(T, T))]
+    f0, b0 = aops.LAUNCHES["forward"], aops.LAUNCHES["backward"]
+    outs = aops.a3po_loss_fused(*args)
+    refs = a3po_loss_ref(*args, clip_eps=0.2, iw_cap=5.0)
+    loss, clip, iw, ratio = refs
+    adv, mask = args[3], args[4]
+    assert bool((iw == 5.0).any()) and 0 < int(mask.sum()) < T
+    assert bool(((clip > 0) & (adv > 0)).any())
+    assert bool(((clip > 0) & (adv < 0)).any())
+    for o, r in zip(outs, refs):
+        torch.testing.assert_close(o, r, rtol=1e-6, atol=0)
+    assert torch.equal(outs[1], clip)
+    g = torch.randn(T, device=cuda_device)
+    gk = aops._backward_kernel(g, clip, iw, ratio, adv, mask)
+    torch.testing.assert_close(gk, a3po_loss_bwd_ref(g, clip, iw, ratio, adv,
+                                                     mask),
+                               rtol=1e-6, atol=0)
+    assert (aops.LAUNCHES["forward"] - f0, aops.LAUNCHES["backward"] - b0) \
+        == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,dtype,layout", [
+    (300, 130, 1000, torch.float32, "tied"),
+    (7, 48, 22, torch.float32, "dv"),
+    (64, 512, 513, torch.bfloat16, "tied"),
+    (129, 64, 4096, torch.bfloat16, "dv"),
+    (100, 128, 1000, torch.bfloat16, "tied"),
+])
+def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
+    """Token logprob + entropy kernel, forward and backward, against its
+    plain version in float32 on the same input values (the kernel
+    accumulates in float32; bf16 products are exact in float32), for both
+    layouts of w, odd vocabularies and depths that are not a multiple of
+    the tile depth. Tolerances: forward 1e-4 + 1e-5 |ref|; backward
+    1e-5 max|ref| + (1e-4 float32, 1e-2 bf16 output rounding) |ref|."""
+    h, w, t = _logprob_inputs(T * 7 + d, T, d, V)
+    th = torch.from_numpy(h).to(cuda_device, dtype)
+    if layout == "tied":
+        tw = torch.from_numpy(np.ascontiguousarray(w.T)).to(
+            cuda_device, dtype).T
+    else:
+        tw = torch.from_numpy(w).to(cuda_device, dtype)
+    tt = torch.from_numpy(t).to(cuda_device)
+    f0, b0 = lops.LAUNCHES["forward"], lops.LAUNCHES["backward"]
+    hk = th.clone().requires_grad_(True)
+    wk = tw.detach().clone().requires_grad_(True) if layout == "dv" else \
+        tw.detach().T.clone().requires_grad_(True)
+    lp, en = lops.token_logprob_entropy(hk, wk if layout == "dv" else wk.T,
+                                        tt)
+    h32 = th.float().requires_grad_(True)
+    w32 = tw.float().detach().requires_grad_(True)
+    lp_r, en_r = token_logprob_entropy_ref(h32, w32, tt)
+    for o, r in ((lp, lp_r), (en, en_r)):
+        torch.testing.assert_close(o, r.detach(), rtol=1e-5, atol=1e-4)
+    g = torch.randn(2, T, device=cuda_device)
+    ((lp * g[0]).sum() + (en * g[1]).sum()).backward()
+    ((lp_r * g[0]).sum() + (en_r * g[1]).sum()).backward()
+    dwk = wk.grad if layout == "dv" else wk.grad.T
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    for o, r in ((hk.grad, h32.grad), (dwk, w32.grad)):
+        assert o.dtype == dtype
+        torch.testing.assert_close(o.float(), r, rtol=rtol,
+                                   atol=1e-5 * float(r.abs().max()))
+    assert lops.LAUNCHES["forward"] - f0 == 1
+    assert lops.LAUNCHES["backward"] - b0 == -(-T // lops.CHUNK)
