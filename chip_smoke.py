@@ -54,7 +54,34 @@ Phases, each printing one JSON line:
              both training ops on their plain versions: every metric and
              every updated parameter agree, and the trainer's logp matches
              the engine's behaviour logp at staleness 0 to 1e-3.
-8. the kernels line, then the contract line (last):
+8. dense kernels — flash attention (causal, B 16, S 1024, H 12, KV 2,
+             hd 128; again with window 256 and at S 1000) and dense-cache
+             decode attention (B 16, L 1056, lengths 1 .. L) on bf16 inputs,
+             each against its plain version in float32 on the same values
+             within 1e-4 + 1e-2 |ref|, which a wrong reference must fail
+             (flash: the diagonal masked; decode: lengths - 1), timed beside
+             its bound, its plain version and SDPA as a yardstick.
+9. rollout — the dense RolloutEngine (prefill through the flash kernel,
+             decode through the dense decode kernel) at Qwen2.5-1.5B, full
+             width and depth, bf16, layer weights x8: PR 11's 16 requests
+             right-padded to 1024, 32 greedy tokens, 28 flash and 28 x 32
+             decode launches, every token and behaviour logp held against
+             forward_logits.
+10. async RL — `python -m repro_torch.launch.train --arch qwen2.5-1.5b
+             --steps 4 --staleness 2` through its main() for a3po and
+             recompute, its seeded initial layer weights x8 and the task's
+             rewards replaced by seeded Bernoulli draws (staleness 0, 1, 2, 2; one host transfer per step, two
+             for recompute; the kernels of both paths launched). After each
+             run: step s generated with the version max(0, s - 2) tree,
+             which still holds its values, the parameters moved, every
+             behaviour logp agrees with forward_logits of its tree, and
+             each kernel op is held against its plain version (with the
+             wrong references of phases 3, 5 and 8) on the inputs of its
+             last call in the run. Then simulate_async with x8 layer
+             weights (the parameters move, the step-0 tree keeps its
+             values) and the threaded AsyncOrchestrator (one record per
+             step, staleness within the gate).
+11. the kernels line, then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -69,6 +96,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -382,6 +410,119 @@ def phase_kernels(torch):
     return results
 
 
+# flash attention and dense decode at the rollout engine's shapes: 16
+# sequences of 1024 positions (the prefill), a cache of 1024 + 32 (decode)
+FLASH_SHAPE = dict(B=16, S=1024, H=12, KV=2, hd=128)
+DECODE_L = 1056
+
+
+def _flash_pairs(S, window):
+    """(query, key) pairs a causal (windowed) pass attends."""
+    if window is None:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def _masked_diagonal_ref(torch, q, k, v):
+    """Flash attention that masks the causal diagonal: one key short."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.float().reshape(B, KV, H // KV, S, hd), k.float()) \
+        * hd ** -0.5
+    i = torch.arange(S, device=q.device)
+    s = torch.where(i[:, None] > i[None, :], s, -1e30)
+    o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, -1), v.float())
+    return o.reshape(B, H, S, hd)
+
+
+def phase_dense_kernels(torch):
+    """Flash attention and dense decode (the rollout engine's kernels) on
+    bf16 inputs against their plain versions in float32 on the same
+    values, each with a wrong reference the tolerance must fail, timed
+    beside its bound, its plain version and a library yardstick."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+
+    F = torch.nn.functional
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    tol = TOL["bfloat16"]
+    B, H, KV, hd = (FLASH_SHAPE[k] for k in ("B", "H", "KV", "hd"))
+    for S, window in ((FLASH_SHAPE["S"], None), (FLASH_SHAPE["S"], 256),
+                      (1000, None)):
+        # the model's [B,S,heads,hd] activations, viewed as [B,heads,S,hd]
+        q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n in (H, KV, KV))
+        out = fops.flash_attention(q, k, v, window=window)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ref = flash_attention_ref(q32, k32, v32, window=window)
+        wrong = {"diagonal_masked": _masked_diagonal_ref(torch, q32, k32,
+                                                         v32)}
+        del q32, k32, v32
+        rec = {"phase": "kernel", "name": "flash_attention",
+               "dtype": "bfloat16", "shape": dict(FLASH_SHAPE, S=S,
+                                                  window=window)}
+        _hold(torch, rec, out, ref, tol, wrong)
+        del ref, wrong
+        if out.stride() != q.stride():
+            raise AssertionError(f"flash output strides {out.stride()}")
+        if S == FLASH_SHAPE["S"]:
+            # timed at the rollout's S, causal and windowed; SDPA has no
+            # window, so it is the yardstick of the causal case only
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            flops = 4 * B * H * hd * _flash_pairs(S, window)
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            rec.update(_times(
+                torch, timer, "bfloat16", nbytes, flops,
+                lambda: fops.flash_attention(q, k, v, window=window),
+                lambda: flash_attention_ref(q, k, v, window=window),
+                None if window else lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, enable_gqa=True),
+                iters=10, plain_iters=3))
+            if window is None:
+                results["flash_attention"] = rec
+        emit(rec)
+        del q, k, v, out
+    # dense decode over the rollout's cache length, lengths 1 .. L
+    L = DECODE_L
+    kc, vc = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.randint(1, L + 1, (B,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[0], lengths[1] = L, 1
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    out = dops.decode_attention_op(q, kc, vc, lengths)
+    q32, k32, v32 = q.float(), kc.float(), vc.float()
+    rec = {"phase": "kernel", "name": "decode_attention",
+           "dtype": "bfloat16", "shape": {"B": B, "H": H, "KV": KV, "hd": hd,
+                                          "L": L, "keys": int(lengths.sum())}}
+    _hold(torch, rec, out, decode_attention_ref(q32, k32, v32, lengths), tol,
+          {"lengths_minus_one": decode_attention_ref(q32, k32, v32,
+                                                     lengths - 1)})
+    n_keys = int(lengths.sum())
+    nbytes = 2 * (2 * q.numel() + 2 * n_keys * KV * hd) + 4 * B
+    flops = 4 * H * hd * n_keys
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    rec.update(_times(
+        torch, timer, "bfloat16", nbytes, flops,
+        lambda: dops.decode_attention_op(q, kc, vc, lengths),
+        lambda: decode_attention_ref(q, kc, vc, lengths),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+        iters=50))
+    results["decode_attention"] = rec
+    emit(rec)
+    return results
+
+
 def _hold(torch, rec, out, ref, tol, wrong_refs):
     """Hold a kernel's ``out`` against its plain version's ``ref``
     (|out - ref| <= atol + rtol * |ref| everywhere), and show the check has
@@ -400,7 +541,7 @@ def _hold(torch, rec, out, ref, tol, wrong_refs):
     if ratio > 1.0 or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{rec['name']}: kernel vs plain: {rec}")
     loose = [k for k, r in rec["wrong_kernel_err_over_tol"].items()
-             if r <= 1.0]
+             if not r > 1.0]  # NaN too: a wrong reference must fail
     if loose:
         raise AssertionError(f"{rec['name']}: the tolerance passes a kernel "
                              f"{loose}: {rec}")
@@ -686,6 +827,7 @@ def _all_counts():
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels.a3po_loss import ops as aops
     from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
     from repro_torch.kernels.prefill_attn import ops as pops
     return {"paged_decode_attention": dops.LAUNCHES,
@@ -693,16 +835,21 @@ def _all_counts():
             "a3po_loss": aops.LAUNCHES["forward"],
             "a3po_loss_bwd": aops.LAUNCHES["backward"],
             "token_logprob_entropy": lops.LAUNCHES["forward"],
-            "token_logprob_entropy_bwd": lops.LAUNCHES["backward"]}
+            "token_logprob_entropy_bwd": lops.LAUNCHES["backward"],
+            "flash_attention": fops.LAUNCHES,
+            "decode_attention": dops.DENSE_LAUNCHES}
 
 
 def _reset_counts():
     from repro_torch.kernels.a3po_loss import ops as aops
     from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
     from repro_torch.kernels.prefill_attn import ops as pops
     dops.LAUNCHES = 0
+    dops.DENSE_LAUNCHES = 0
     pops.LAUNCHES = 0
+    fops.LAUNCHES = 0
     for d in (aops.LAUNCHES, lops.LAUNCHES):
         for k in d:
             d[k] = 0
@@ -1057,6 +1204,535 @@ def phase_training(torch):
     return launches
 
 
+# ------------------------------------------------------------- rollout, loop
+ROLLOUT_PROMPT_PAD = 1024  # PR 11's 16 requests, right-padded
+
+
+def phase_rollout(torch):
+    """The dense RolloutEngine at Qwen2.5-1.5B, full width and depth, bf16,
+    layer weights x8: PR 11's 16 requests (prompts 64-1024, right-padded to
+    1024), 32 greedy new tokens. Each generated token and behaviour logp is
+    held against the whole-sequence forward_logits (PR 11's tolerances);
+    the flash kernel runs once per layer for the prefill and the dense
+    decode kernel once per layer per token."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.rollout.engine import RolloutEngine
+
+    cfg = get_config("qwen2.5-1.5b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16)
+    _scale_blocks(torch, params, SCALE)
+    reqs = _requests(cfg)
+    prompts = np.zeros((len(reqs), ROLLOUT_PROMPT_PAD), np.int32)
+    lengths = np.array([len(r) for r in reqs], np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, : len(r)] = r
+    engine = RolloutEngine(cfg, max_new_tokens=MAX_NEW)
+    # warm-up: library handles and kernel modules load outside the timing
+    engine.generate(params, prompts[:2], lengths[:2], greedy=True)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rb = engine.generate(params, prompts, lengths, greedy=True)
+    elapsed = time.perf_counter() - t0
+    launches = {k: v for k, v in _all_counts().items()
+                if k in ("flash_attention", "decode_attention")}
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * MAX_NEW}
+    if launches != want:
+        raise AssertionError(f"rollout launches {launches}, want {want}")
+    if not np.all(np.isfinite(rb.gen_logp)):
+        raise AssertionError("rollout: non-finite behaviour logp")
+    done = []
+    for i, r in enumerate(reqs):
+        n = int(rb.gen_mask[i].sum())
+        gen = rb.tokens[i, len(r): len(r) + n]
+        if n != MAX_NEW and gen[-1] != 2:
+            raise AssertionError(f"rollout row {i}: mask {rb.gen_mask[i]}")
+        done.append(SimpleNamespace(rid=i, prompt=r, generated=gen.tolist(),
+                                    gen_logp=rb.gen_logp[i, :n].tolist()))
+    checks = _reference_checks(torch, M, cfg, params, done, ENGINE_GAP_TOL,
+                               ENGINE_LOGP_TOL)
+    n_gen = int(rb.gen_mask.sum())
+    emit({"phase": "rollout", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": "bfloat16", "layer_weight_scale": SCALE,
+          "batch": list(prompts.shape), "max_new": MAX_NEW,
+          "prompt_tokens": int(lengths.sum()), "generated_tokens": n_gen,
+          "elapsed_s": elapsed, "tokens_per_s": n_gen / elapsed,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "reference_checks": checks})
+
+    # where the time goes: device-synchronised prefill / decode spans, and
+    # a device profile of one more call
+    from repro_torch.obs.tracing import install_tracer, phase_breakdown
+    tracer = _sync_tracer(torch)
+    install_tracer(tracer)
+    try:
+        t0 = time.perf_counter()
+        rb2 = engine.generate(params, prompts, lengths, greedy=True)
+        traced_s = time.perf_counter() - t0
+    finally:
+        install_tracer(None)
+    br = phase_breakdown(tracer.events())
+    if not np.array_equal(rb2.tokens, rb.tokens):
+        raise AssertionError("traced rollout generated other tokens")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(params, prompts, lengths, greedy=True)
+        return time.perf_counter() - t0
+    prof = _device_profile(torch, run)
+    emit(dict({"phase": "rollout_profile", "traced_elapsed_s": traced_s,
+               "prefill_s": br["prefill"]["total_s"],
+               "prefill_tokens_per_s": int(lengths.sum())
+               / br["prefill"]["total_s"],
+               "decode_s": br["decode"]["total_s"],
+               "decode_steps": br["decode"]["count"],
+               "decode_ms_per_step": 1e3 * br["decode"]["total_s"]
+               / br["decode"]["count"]}, **prof))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _coin_task_class():
+    """ArithmeticTask whose rewards are seeded Bernoulli(0.5) draws: a
+    random model scores 0 on the verifier, which makes every advantage 0
+    and the update empty."""
+    import numpy as np
+    from repro_torch.data.tasks import ArithmeticTask
+
+    class CoinTask(ArithmeticTask):
+        def rewards(self, completions, answers):
+            if not hasattr(self, "coin"):
+                self.coin = np.random.default_rng(7)
+            return self.coin.binomial(1, 0.5, len(answers)).astype(
+                np.float32)
+    return CoinTask
+
+
+def _check_records(np, recs, label):
+    keys = ("reward", "loss", "entropy", "iw_max", "iw_min",
+            "clipped_tokens", "staleness_mean", "prox_time_s",
+            "rollout_time_s", "train_time_s", "train_tokens", "host_syncs")
+    bad = [(r["step"], k) for r in recs for k in keys
+           if not np.isfinite(r[k])]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+
+
+@contextlib.contextmanager
+def _capture_path(torch):
+    """Record, from a run of the main path, what its four kernel ops were
+    last given (detached copies, strides kept) and every rollout: the ops
+    are wrapped under the names the path's modules call them by, and each
+    call goes through unchanged. Yields {op name: (args, kwargs)} with
+    ``"rollouts"``: [(params, version, RolloutBatch)] and ``"trees"``:
+    {version: a copy of its parameters when a rollout first used them}."""
+    from repro_torch.core import objective
+    from repro_torch.models import attention
+    from repro_torch.rollout.engine import RolloutEngine
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import flatten
+    seen = {"rollouts": [], "trees": {}}
+    sites = {"flash_attention": (attention, "flash_attention"),
+             "decode_attention": (attention, "decode_attention_op"),
+             "token_logprob_entropy": (trainer, "token_logprob_entropy"),
+             "a3po_loss": (objective, "a3po_objective"),
+             "rollouts": (RolloutEngine, "generate")}
+    saved = {k: getattr(m, a) for k, (m, a) in sites.items()}
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            seen[name] = ([a.detach().clone() if torch.is_tensor(a) else a
+                           for a in args], kw)
+            return fn(*args, **kw)
+        return run
+
+    def generate(self, params, *args, **kw):
+        version = kw.get("version", 0)
+        if version not in seen["trees"]:
+            seen["trees"][version] = {k: t.detach().clone()
+                                      for k, t in flatten(params).items()}
+        rb = saved["rollouts"](self, params, *args, **kw)
+        seen["rollouts"].append((params, version, rb))
+        return rb
+
+    for name, (mod, attr) in sites.items():
+        setattr(mod, attr, generate if name == "rollouts"
+                else wrap(name, saved[name]))
+    try:
+        yield seen
+    finally:
+        for name, (mod, attr) in sites.items():
+            setattr(mod, attr, saved[name])
+
+
+def _logprob_top_tile_dropped(torch, h, w, t, tile=128):
+    """The plain token logp and entropy with, in each row, the 128-entry
+    vocab tile that holds the row's largest logit left out: a kernel that
+    skipped the tile that matters most to that row (half the vocabulary
+    where that is less than a tile)."""
+    logits = h @ w
+    tile = min(tile, logits.shape[1] // 2)
+    first = logits.argmax(dim=-1) // tile * tile
+    cols = torch.arange(logits.shape[1], device=logits.device)[None]
+    drop = (cols >= first[:, None]) & (cols < first[:, None] + tile)
+    logz = torch.logsumexp(logits.masked_fill(drop, -torch.inf), dim=-1)
+    p = torch.exp(logits - logz[:, None]).masked_fill(drop, 0.0)
+    logp = logits.gather(-1, t.long()[:, None])[:, 0] - logz
+    return logp, logz - (p * logits).sum(-1)
+
+
+def _hold_path_kernels(torch, seen):
+    """Each kernel op the path called, held against its plain version on
+    the inputs of its last call there (bf16 attention and logprob inputs
+    against float32 plain versions, the A-3PO loss in float32), with the
+    wrong references of the kernel phases. Returns the records."""
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.a3po_loss.ref import (
+        a3po_loss_bwd_ref,
+        a3po_loss_ref,
+    )
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.logprob.ref import token_logprob_entropy_ref
+
+    tol = TOL["bfloat16"]
+    recs = {}
+    if "flash_attention" in seen:
+        (q, k, v), kw = seen["flash_attention"]
+        with torch.no_grad():
+            out = fops.flash_attention(q, k, v, **kw)
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            rec = {"name": "flash_attention", "shape": list(q.shape),
+                   "kv_shape": list(k.shape), "strides": list(q.stride()),
+                   **kw}
+            _hold(torch, rec, out, flash_attention_ref(q32, k32, v32, **kw),
+                  tol, {"diagonal_masked": _masked_diagonal_ref(
+                      torch, q32, k32, v32)})
+        recs["flash_attention"] = rec
+    if "decode_attention" in seen:
+        (q, kc, vc, lengths), _ = seen["decode_attention"]
+        with torch.no_grad():
+            out = dops.decode_attention_op(q, kc, vc, lengths)
+            q32, k32, v32 = q.float(), kc.float(), vc.float()
+            rec = {"name": "decode_attention", "shape": list(q.shape),
+                   "cache": list(kc.shape),
+                   "lengths": [int(lengths.min()), int(lengths.max())]}
+            _hold(torch, rec, out, decode_attention_ref(q32, k32, v32,
+                                                        lengths), tol,
+                  {"lengths_minus_one": decode_attention_ref(
+                      q32, k32, v32, lengths - 1)})
+        recs["decode_attention"] = rec
+    if "token_logprob_entropy" in seen:
+        (h, w, t), _ = seen["token_logprob_entropy"]
+        h, t = h.reshape(-1, h.shape[-1]), t.reshape(-1)
+        V = w.shape[1]
+        rec = {"name": "token_logprob_entropy", "dtype": str(h.dtype),
+               "shape": {"T": h.shape[0], "d": h.shape[1], "V": V}}
+        # forward, with a wrong reference one vocab tile short: here the
+        # tile that holds each row's largest logit, since the path's rows
+        # put all but ~e^-15 of their mass on a few tokens and any other
+        # tile moves logz by less than the tolerance
+        with torch.no_grad():
+            lp, en = lops.token_logprob_entropy(h, w, t)
+            h32, w32 = h.float(), w.float()
+            lp_r, en_r = token_logprob_entropy_ref(h32, w32, t)
+            lp_w, en_w = _logprob_top_tile_dropped(torch, h32, w32, t)
+        for label, out, ref, wrong in (("logp", lp, lp_r, lp_w),
+                                       ("entropy", en, en_r, en_w)):
+            rec[label] = {"name": f"token_logprob_entropy.{label}"}
+            _hold(torch, rec[label], out, ref, LOGPROB_TOL,
+                  {"top_vocab_tile_dropped": wrong})
+        del h32, w32, lp_r, en_r, lp_w, en_w
+        # backward: dh, dw against autograd of the plain version
+        g = torch.Generator(device=h.device).manual_seed(9)
+        gl, ge = torch.randn(2, h.shape[0], generator=g, device=h.device)
+        hk, wk = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        lp, en = lops.token_logprob_entropy(hk, wk, t)
+        ((lp * gl).sum() + (en * ge).sum()).backward()
+        h32 = h.float().requires_grad_(True)
+        w32 = w.float().requires_grad_(True)
+        lp_r, en_r = token_logprob_entropy_ref(h32, w32, t)
+        ((lp_r * gl).sum() + (en_r * ge).sum()).backward()
+        rtol = LOGPROB_BWD_RTOL["bfloat16" if h.dtype == torch.bfloat16
+                                else "float32"]
+        for label, out, ref in (("dh", hk.grad, h32.grad),
+                                ("dw", wk.grad, w32.grad)):
+            rec[label] = {"name": f"token_logprob_entropy_bwd.{label}"}
+            _hold(torch, rec[label], out, ref,
+                  {"rtol": rtol, "atol": 1e-5 * ref.abs().max().item()}, {})
+        del hk, wk, h32, w32
+        recs["token_logprob_entropy"] = rec
+    if "a3po_loss" in seen:
+        args, kw = seen["a3po_loss"]
+        args = [a.reshape(-1).contiguous() for a in args]
+        adv, mask = args[3], args[4]
+        outs = aops.a3po_loss_fused(*args, **kw)
+        refs = a3po_loss_ref(*args, **kw)
+        _, clip, iw, ratio = refs
+        rec = {"name": "a3po_loss", "T": args[0].numel(), **kw,
+               "cover": {"clipped": int(clip.sum()),
+                         "adv_nonzero": int((adv != 0).sum()),
+                         "masked_in": int(mask.sum())},
+               "max_abs_err": _rel_check(torch, "a3po_loss", outs, refs,
+                                         exact=(1,))}
+        x = args[0].clone().requires_grad_(True)
+        g = torch.Generator(device=x.device).manual_seed(9)
+        gl = torch.randn(x.shape, generator=g, device=x.device)
+        aops.a3po_objective(x, *args[1:], **kw)[0].backward(gl)
+        rec["bwd_max_abs_err"] = _rel_check(
+            torch, "a3po_loss_bwd", [x.grad],
+            [a3po_loss_bwd_ref(gl, clip, iw, ratio, adv, mask)])
+        recs["a3po_loss"] = rec
+    return recs
+
+
+def _check_behaviour(torch, M, cfg, rollouts, final_params, snaps,
+                     staleness):
+    """The launcher's rollouts: step s generated with the version
+    max(0, s - staleness) tree, each such tree still holds the values it
+    had when it was first used (no in-place update reached an older
+    version), the final parameters moved, and every recorded behaviour
+    logp agrees with the whole-sequence forward_logits of the tree that
+    generated it at the sampled token (temperature 1, top-p 1)."""
+    import numpy as np
+    from repro_torch.training.optimizer import flatten
+    versions = [v for _, v, _ in rollouts]
+    want = [max(0, s - staleness) for s in range(len(rollouts))]
+    kept = {v: all(torch.equal(t, snaps[v][k])
+                   for k, t in flatten(p).items())
+            for p, v, _ in rollouts}
+    final = flatten(final_params)
+    moved = {v: sum(int((final[k] != snaps[v][k]).sum()) for k in final)
+             for v in snaps}
+    worst = 0.0
+    n_tok = 0
+    logp_sum = 0.0
+    for p, v, rb in rollouts:
+        toks = torch.as_tensor(rb.tokens.astype(np.int64),
+                               device=final_params["embedding"]["embed"].device)
+        with torch.no_grad():
+            lp = torch.log_softmax(M.forward_logits(p, cfg, toks[:, :-1]),
+                                   dim=-1)
+        for b, P in enumerate(np.asarray(rb.prompt_lengths)):
+            n = int(rb.gen_mask[b].sum())
+            ref = lp[b, P - 1: P - 1 + n].gather(
+                -1, toks[b, P: P + n, None])[:, 0].cpu().numpy()
+            worst = max(worst, float(np.abs(ref - rb.gen_logp[b, :n]).max(
+                initial=0.0)))
+            n_tok += n
+            logp_sum += float(rb.gen_logp[b, :n].sum())
+    out = {"behaviour_versions": versions, "trees_kept": kept,
+           "params_moved_from": moved, "behaviour_logp_max_abs_err": worst,
+           "tokens_checked": n_tok, "mean_behaviour_logp": logp_sum
+           / max(n_tok, 1), "logp_tol": ENGINE_LOGP_TOL,
+           "max_mean_logp": MAX_MEAN_LOGP}
+    # a model that puts probability 1 on one token (logp 0) would pass
+    # the logp comparison whatever the engine recorded
+    if versions != want or not all(kept.values()) \
+            or min(moved.values()) == 0 or worst > ENGINE_LOGP_TOL \
+            or n_tok == 0 or out["mean_behaviour_logp"] > MAX_MEAN_LOGP:
+        raise AssertionError(f"launcher behaviour: {out}, want versions "
+                             f"{want}")
+    return out
+
+
+def phase_async_rl(torch, tmp):
+    """The async RL loop at Qwen2.5-1.5B, full width and depth, bf16: the
+    launcher (`python -m repro_torch.launch.train --arch qwen2.5-1.5b
+    --steps 4 --staleness 2`) for a3po and recompute, from its own seeded
+    initial state with the layer weights x8 and the task's rewards
+    replaced by seeded Bernoulli draws so that the update is not empty,
+    holding each kernel of the path against its plain version on
+    the inputs the path gave it, and the behaviour policies and logps;
+    simulate_async with x8 layer weights, checking that the parameters
+    move and that the step-0 tree keeps its values; the threaded
+    AsyncOrchestrator."""
+    import numpy as np
+    from repro_torch.async_rl.orchestrator import (
+        AsyncOrchestrator,
+        simulate_async,
+    )
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.obs.runlog import read_jsonl
+    from repro_torch.training import Trainer, TrainState, adam_init
+    from repro_torch.training.optimizer import flatten
+
+    launches = {}
+    staleness = 2
+    cfg = get_config("qwen2.5-1.5b")
+    plain = train.ArithmeticTask, train.simulate_async
+    for algo in ("a3po", "recompute"):
+        path = str(tmp / f"train_{algo}.jsonl")
+        result = {}
+
+        def run_and_keep(cfg, rl, task, algo, num_steps, **kw):
+            # the launcher's initial state as simulate_async makes it
+            # (seed + 7), with the layer weights x8: at init stds the model
+            # puts probability 1 on one token, so every behaviour logp is 0
+            # and the gradients all but vanish
+            dev = kw["device"]
+            state = Trainer(cfg, rl, algo).init_state(
+                torch.Generator(device=dev).manual_seed(7), device=dev)
+            with torch.no_grad():
+                _scale_blocks(torch, state.params, SCALE)
+            result["state"], recs = simulate_async(
+                cfg, rl, task, algo, num_steps, init_state=state, **kw)
+            return result["state"], recs
+        # the task's rewards become seeded Bernoulli draws, and the final
+        # state is kept for the checks
+        train.ArithmeticTask, train.simulate_async = (_coin_task_class(),
+                                                      run_and_keep)
+        try:
+            with _capture_path(torch) as seen:
+                _reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
+                            "--staleness", str(staleness), "--algo", algo,
+                            "--log-jsonl", path, "--quiet"])
+                elapsed = time.perf_counter() - t0
+                counts = _all_counts()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            train.ArithmeticTask, train.simulate_async = plain
+        recs = read_jsonl(path)
+        _check_records(np, recs, algo)
+        syncs = 2.0 if algo == "recompute" else 1.0
+        rec = {"phase": "async_rl_launcher", "algo": algo,
+               "rewards": "seeded Bernoulli(0.5)",
+               "layer_weight_scale": SCALE,
+               "steps": len(recs), "elapsed_s": elapsed,
+               "steps_per_s": len(recs) / elapsed,
+               "staleness": [r["staleness_mean"] for r in recs],
+               "host_syncs": [r["host_syncs"] for r in recs],
+               "prox_time_s": [r["prox_time_s"] for r in recs],
+               "reward": [r["reward"] for r in recs],
+               "loss": [r["loss"] for r in recs],
+               "rollout_s": [r["rollout_time_s"] for r in recs],
+               "train_s": [r["train_time_s"] for r in recs],
+               "peak_mem_gb": peak, "launches": counts}
+        emit(rec)
+        prox_ok = all((p > 1e-3) == (algo == "recompute")
+                      for p in rec["prox_time_s"])
+        path_kernels = ["flash_attention", "decode_attention",
+                        "token_logprob_entropy", "token_logprob_entropy_bwd"]
+        if algo == "a3po":
+            path_kernels += ["a3po_loss", "a3po_loss_bwd"]
+        if (rec["staleness"] != [0.0, 1.0, 2.0, 2.0]
+                or rec["host_syncs"] != [syncs] * 4 or not prox_ok
+                or any(counts[k] <= 0 for k in path_kernels)
+                or any(k not in seen for k in path_kernels
+                       if not k.endswith("_bwd"))):
+            raise AssertionError(f"launcher run: {rec}")
+        launches[algo] = counts
+        # after the counts were read: the path's rollouts and the inputs
+        # it gave its kernels, held against their plain versions
+        rollouts, trees = seen.pop("rollouts"), seen.pop("trees")
+        behaviour = _check_behaviour(torch, M, cfg, rollouts,
+                                     result["state"].params, trees,
+                                     staleness)
+        emit({"phase": "async_rl_launcher_checks", "algo": algo,
+              **behaviour, "kernels": _hold_path_kernels(torch, seen)})
+        del seen, rollouts, trees, result
+        torch.cuda.empty_cache()
+
+    # simulate_async with seeded rewards: the update is not empty, and no
+    # in-place update reaches the step-0 tree the loop keeps as behaviour
+    rl = RLConfig(group_size=4, num_minibatches=2, learning_rate=2e-4,
+                  max_staleness=3)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_blocks(torch, params, SCALE)
+    state = TrainState(params, adam_init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    before = {k: v.detach().clone() for k, v in flatten(params).items()}
+    task = _coin_task_class()(max_operand=9, n_terms=2, prompt_len=8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, recs = simulate_async(cfg, rl, task, "a3po", 4, n_prompts=8,
+                                 max_new_tokens=6, staleness=2,
+                                 init_state=state)
+    elapsed = time.perf_counter() - t0
+    step0_same = all(torch.equal(v, before[k])
+                     for k, v in flatten(params).items())
+    final = flatten(state.params)
+    changed = sum(int((final[k] != before[k]).sum()) for k in final)
+    recs = [dataclasses.asdict(r) for r in recs]
+    _check_records(np, recs, "simulate_async")
+    rec = {"phase": "async_rl_simulate", "algo": "a3po", "staleness": 2,
+           "layer_weight_scale": SCALE, "steps": len(recs),
+           "elapsed_s": elapsed, "steps_per_s": len(recs) / elapsed,
+           "staleness_mean": [r["staleness_mean"] for r in recs],
+           "reward": [r["reward"] for r in recs],
+           "loss": [r["loss"] for r in recs],
+           "rollout_s": [r["rollout_time_s"] for r in recs],
+           "train_s": [r["train_time_s"] for r in recs],
+           "step0_tree_unchanged": step0_same,
+           "params_changed": changed,
+           "params_total": sum(v.numel() for v in final.values()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    if not step0_same or changed == 0 \
+            or rec["staleness_mean"] != [0.0, 1.0, 2.0, 2.0]:
+        raise AssertionError(f"simulate_async: {rec}")
+    del state, params, before, final
+    torch.cuda.empty_cache()
+
+    # the threaded orchestrator: a rollout thread and the trainer share
+    # the card
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(6),
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_blocks(torch, params, SCALE)
+    state = TrainState(params, adam_init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    orch = AsyncOrchestrator(cfg, rl, _coin_task_class()(
+        max_operand=9, n_terms=2, prompt_len=8), "a3po", n_prompts=8,
+        max_new_tokens=6, queue_capacity=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, recs = orch.run(state, 3)
+    elapsed = time.perf_counter() - t0
+    recs = [dataclasses.asdict(r) for r in recs]
+    _check_records(np, recs, "orchestrator")
+    rec = {"phase": "async_rl_orchestrator", "algo": "a3po",
+           "max_staleness": rl.max_staleness, "steps": len(recs),
+           "elapsed_s": elapsed, "steps_per_s": len(recs) / elapsed,
+           "staleness_mean": [r["staleness_mean"] for r in recs],
+           "rollout_s": [r["rollout_time_s"] for r in recs],
+           "train_s": [r["train_time_s"] for r in recs],
+           "queue_dropped": orch.queue.dropped,
+           "version": int(state.version),
+           "worker_crashes": len(orch.worker.crashes),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    if [r["step"] for r in recs] != [0, 1, 2] or rec["version"] != 3 \
+            or rec["worker_crashes"] or orch.worker.alive \
+            or not all(0 <= d <= rl.max_staleness
+                       for d in rec["staleness_mean"]):
+        raise AssertionError(f"orchestrator: {rec}")
+    del state, params, orch
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def _plain_training_ops():
     """Both training ops on their plain versions (``use_kernel=False``), as
@@ -1145,6 +1821,7 @@ def phase_training_f32(torch):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     phase_device()
     import torch
     phase_build()
@@ -1157,6 +1834,13 @@ def main() -> int:
     launches.update({k: v for k, v in phase_training(torch).items()
                      if k not in launches})
     phase_training_f32(torch)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        kernels.update(phase_dense_kernels(torch))
+    torch.cuda.empty_cache()
+    launches.update(phase_rollout(torch))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_async_rl(torch, Path(tmp))
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),
@@ -1174,7 +1858,13 @@ def main() -> int:
         "src/repro/kernels/logprob/kernel.py:87"),
         "token_logprob_entropy_bwd": (
         "src/repro_torch/kernels/csrc/token_logprob_entropy.cu",
-        "src/repro/kernels/logprob/kernel.py:87")}
+        "src/repro/kernels/logprob/kernel.py:87"),
+        "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "src/repro/kernels/flash_attn/kernel.py:72"),
+        "decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attn.cu",
+        "src/repro/kernels/decode_attn/kernel.py:57")}
     line = []
     for name, (source, replaces) in src.items():
         k = kernels[name]
@@ -1184,6 +1874,7 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
+    emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

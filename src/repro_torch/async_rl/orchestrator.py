@@ -1,0 +1,301 @@
+"""Async RL orchestration: decoupled rollout + training engines
+(``repro.async_rl.orchestrator``).
+
+Two operating modes:
+
+* ``AsyncOrchestrator`` — real threads: a rollout worker continuously pulls
+  the latest weights, generates groups, and pushes version-stamped batches;
+  the trainer consumes fresh batches and publishes new weights. On one card
+  the two threads share the device (and its default stream).
+
+* ``simulate_async`` — deterministic single-thread simulation with an
+  explicit staleness schedule: the behaviour policy of step t is the
+  version ``t - staleness`` parameter tree.
+
+Both rely on the trainer returning new parameter tensors every step
+(``Trainer(donate_params=False)``, the default): ``simulate_async`` keeps
+the trees of earlier versions as behaviour policies, and the weight store
+hands the published tree to the rollout thread. An in-place update would
+turn every behaviour policy into the current one while the staleness
+stamps still read ``d``.
+
+Not ported yet (each raises ``NotImplementedError``): the serving control
+plane (``use_control_plane=True``, ROADMAP queue 1 "serving/") and the
+fault-tolerance runtime (``resilience=``, ``resume=``, ROADMAP queue 1
+"resilience/").
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.async_rl.buffer import QueueClosed, RolloutQueue
+from repro_torch.async_rl.weights import WeightStore
+from repro_torch.configs.base import ModelConfig, RLConfig
+from repro_torch.data.tasks import ArithmeticTask
+from repro_torch.models.model import require_device
+from repro_torch.obs.tracing import (
+    flow_end,
+    flow_start,
+    span,
+    step_annotation,
+)
+from repro_torch.resilience.supervisor import (
+    SupervisedWorker,
+    pop_with_health,
+)
+from repro_torch.rollout.engine import RolloutEngine
+from repro_torch.training.trainer import (
+    TrainState,
+    Trainer,
+    assemble_train_batch,
+)
+
+# how long the trainer waits for a fresh batch before it gives up (the
+# reference's RolloutQueue.pop_fresh default)
+POP_DEADLINE_S = 30.0
+
+_NOT_PORTED = {
+    "use_control_plane": "the serving control plane is not ported yet "
+                         "(ROADMAP queue 1, 'serving/')",
+    "resilience": "the fault-tolerance runtime is not ported yet (ROADMAP "
+                  "queue 1, 'resilience/')",
+}
+
+
+@dataclasses.dataclass
+class StepRecord:
+    step: int
+    reward: float
+    loss: float
+    entropy: float
+    iw_max: float
+    iw_min: float
+    clipped_tokens: float
+    staleness_mean: float
+    prox_time_s: float
+    rollout_time_s: float
+    train_time_s: float
+    wall_time_s: float
+    eval_reward: Optional[float] = None  # held-out eval (when scheduled)
+    # serving control-plane snapshot (not ported: always None here)
+    serving: Optional[Dict[str, float]] = None
+    # training-engine telemetry: response tokens updated this step and
+    # device->host transfers the step performed (1; +1 for the explicit
+    # prox pass of the 'recompute' baseline)
+    train_tokens: float = 0.0
+    host_syncs: float = 0.0
+    # resilience_* counter snapshot (not ported: always None here)
+    resilience: Optional[Dict[str, float]] = None
+
+
+def _rollout_once(engine: RolloutEngine, task: ArithmeticTask, params,
+                  version: int, n_prompts: int, group: int,
+                  generator: Optional[torch.Generator]):
+    batch = task.sample(n_prompts)
+    prompts = np.repeat(batch.prompts, group, axis=0)
+    lengths = np.repeat(batch.prompt_lengths, group)
+    answers = [a for a in batch.answers for _ in range(group)]
+    rb = engine.generate(params, prompts, lengths, generator,
+                         version=version)
+    completions = engine.completions(rb)
+    rewards = task.rewards(completions, answers)
+    return rb, rewards
+
+
+def _record(step: int, m: Dict[str, float], rollout_t: float,
+            train_t: float, t_start: float) -> StepRecord:
+    return StepRecord(
+        step=step, reward=m["reward_mean"], loss=m["loss"],
+        entropy=m.get("entropy", 0.0), iw_max=m["iw_max"],
+        iw_min=m["iw_min"], clipped_tokens=m["clipped_tokens"],
+        staleness_mean=m["staleness_mean"], prox_time_s=m["prox_time_s"],
+        rollout_time_s=rollout_t, train_time_s=train_t,
+        wall_time_s=time.perf_counter() - t_start,
+        train_tokens=m.get("tokens", 0.0),
+        host_syncs=m.get("host_syncs", 0.0))
+
+
+class AsyncOrchestrator:
+    """Thread-decoupled rollout/training loop.
+
+    ``algo`` is an ``Algorithm`` instance or registry name
+    (``core.algorithms``); dispatch is entirely the Trainer's. The trainer
+    waits for batches through ``pop_with_health``: a crashed rollout worker
+    raises ``WorkerFailed`` instead of leaving the trainer to time out.
+    """
+
+    def __init__(self, cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
+                 algo="a3po", n_prompts: int = 16,
+                 max_new_tokens: int = 8, queue_capacity: int = 4,
+                 seed: int = 0, use_control_plane: bool = False,
+                 resilience=None):
+        if use_control_plane:
+            raise NotImplementedError(_NOT_PORTED["use_control_plane"])
+        if resilience is not None:
+            raise NotImplementedError(_NOT_PORTED["resilience"])
+        self.cfg, self.rl, self.task = cfg, rl, task
+        self.n_prompts = n_prompts
+        self.max_new_tokens = max_new_tokens
+        self.engine = RolloutEngine(cfg, rl, max_new_tokens)
+        self.trainer = Trainer(cfg, rl, algo)
+        self.algo = self.trainer.algo
+        self.queue = RolloutQueue(queue_capacity, rl.max_staleness)
+        self.seed = seed
+        self._stop = threading.Event()
+        self._rollout_times: List[float] = []
+        self.worker = None  # the SupervisedWorker of the last run()
+
+    def _rollout_worker(self, ctx, store: WeightStore, device) -> None:
+        """Supervised worker body: loops until told to stop, heartbeats
+        every iteration."""
+        generator = torch.Generator(device=device).manual_seed(self.seed + 1)
+        while not ctx.should_stop():
+            ctx.heartbeat()
+            t0 = time.perf_counter()
+            params, version = store.latest()
+            with span("rollout", version=version) as sp:
+                rb, rewards = _rollout_once(
+                    self.engine, self.task, params, version,
+                    self.n_prompts, self.rl.group_size, generator)
+                sp.set(reward_mean=float(np.mean(rewards)))
+                # close the publish->rollout flow arrow: first rollout
+                # generated under the published version
+                flow_end("publish", version)
+            self._rollout_times.append(time.perf_counter() - t0)
+            rb.rewards = rewards  # piggyback
+            try:
+                if not self.queue.push(rb, timeout=1.0):
+                    continue  # queue full — back-pressure
+            except QueueClosed:
+                return  # consumer went away: clean exit
+
+    def run(self, state: TrainState, num_steps: int,
+            run_logger=None, start_step: int = 0
+            ) -> (TrainState, List[StepRecord]):
+        """Drive training steps ``start_step..num_steps-1`` against the
+        live rollout worker. ``run_logger`` (``obs.runlog.RunLogger``)
+        gets exactly one JSONL step record per training step."""
+        self._stop.clear()
+        device = state.version.device
+        version = int(state.version)
+        store = WeightStore(state.params, version)
+        self.worker = SupervisedWorker(
+            "rollout-worker", self._rollout_worker, args=(store, device),
+            max_restarts=0, heartbeat_timeout_s=60.0, seed=0,
+            stop_event=self._stop)
+        t_start = time.perf_counter()
+        self.worker.start()
+        records: List[StepRecord] = []
+        try:
+            for step in range(start_step, num_steps):
+                with step_annotation(step):
+                    batches = pop_with_health(
+                        self.queue, self.worker, version, n=1,
+                        deadline_s=POP_DEADLINE_S)
+                    rewards = np.concatenate([b.rewards for b in batches])
+                    tb = assemble_train_batch(batches, rewards,
+                                              device=device)
+                    t0 = time.perf_counter()
+                    with span("train_step", step=step):
+                        state, m = self.trainer.step(state, tb)
+                    train_t = time.perf_counter() - t0
+                    version += 1  # Trainer.step advances it by one
+                    with span("weight_publish", version=version):
+                        store.publish(state.params, version)
+                        # open the publish->resume flow arrow (closed by
+                        # the first rollout under `version`)
+                        flow_start("publish", version)
+                records.append(_record(
+                    step, m, (np.mean(self._rollout_times[-3:])
+                              if self._rollout_times else 0.0),
+                    train_t, t_start))
+                if run_logger is not None:
+                    run_logger.log_step(records[-1])
+        finally:
+            self._stop.set()
+            self.queue.close()
+            self.worker.stop(timeout=60.0)
+        return state, records
+
+
+def simulate_async(cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
+                   algo, num_steps: int, *,
+                   n_prompts: int = 8, max_new_tokens: int = 8,
+                   staleness: int = 1, seed: int = 0,
+                   init_state: Optional[TrainState] = None,
+                   record_hook: Optional[Callable[[int, Dict], None]] = None,
+                   eval_every: int = 0,
+                   eval_fn: Optional[Callable] = None,
+                   num_microbatches: int = 1,
+                   run_logger=None,
+                   resilience=None,
+                   resume=None,
+                   device="cuda",
+                   ) -> (TrainState, List[StepRecord]):
+    """Deterministic async simulation: behavior policy lags ``staleness``
+    versions behind (0 == synchronous on-policy). ``algo`` is an
+    ``Algorithm`` or registry name. ``eval_fn(params)`` is invoked every
+    ``eval_every`` steps (the paper's held-out eval worker, Fig. 3);
+    results land in ``StepRecord.eval_reward``. ``run_logger``
+    (``obs.runlog.RunLogger``) gets one JSONL step record per step.
+
+    The run lives on ``init_state``'s device, or on ``device`` (default the
+    card) where it initialises the state from ``seed + 7``. One
+    ``torch.Generator`` seeded from ``seed`` drives every rollout's
+    sampling, where the reference splits a key per step.
+    """
+    if resilience is not None or resume is not None:
+        raise NotImplementedError(_NOT_PORTED["resilience"])
+    engine = RolloutEngine(cfg, rl, max_new_tokens)
+    trainer = Trainer(cfg, rl, algo, num_microbatches=num_microbatches)
+    if init_state is None:
+        device = require_device(device)
+        state = trainer.init_state(
+            torch.Generator(device=device).manual_seed(seed + 7),
+            device=device)
+    else:
+        state = init_state
+        device = state.version.device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    version = int(state.version)
+    history: deque = deque([(state.params, version)], maxlen=staleness + 1)
+    records: List[StepRecord] = []
+    t_start = time.perf_counter()
+    for step in range(num_steps):
+        behav_params, behav_version = history[0]
+        t0 = time.perf_counter()
+        with span("rollout", step=step, version=behav_version) as sp:
+            rb, rewards = _rollout_once(engine, task, behav_params,
+                                        behav_version, n_prompts,
+                                        rl.group_size, generator)
+            sp.set(reward_mean=float(np.mean(rewards)))
+            # close the publish->rollout staleness arrow: the simulated
+            # behavior policy first acts `staleness` steps after publish
+            flow_end("publish", behav_version)
+        rollout_t = time.perf_counter() - t0
+        tb = assemble_train_batch([rb], rewards, device=device)
+        t0 = time.perf_counter()
+        with step_annotation(step), span("train_step", step=step,
+                                         staleness=staleness):
+            state, m = trainer.step(state, tb)
+        train_t = time.perf_counter() - t0
+        version += 1  # Trainer.step advances it by one
+        with span("weight_publish", version=version):
+            history.append((state.params, version))
+            flow_start("publish", version)
+        rec = _record(step, m, rollout_t, train_t, t_start)
+        if eval_fn and eval_every and (step + 1) % eval_every == 0:
+            rec.eval_reward = float(eval_fn(state.params))
+        records.append(rec)
+        if run_logger is not None:
+            run_logger.log_step(rec)
+        if record_hook:
+            record_hook(step, m)
+    return state, records

@@ -1,19 +1,23 @@
-"""Dispatch wrapper for paged decode attention
-(``repro.kernels.decode_attn.ops.paged_decode_attention_op``).
+"""Dispatch wrappers for decode attention, paged and dense
+(``repro.kernels.decode_attn.ops``).
 
 A tensor on the CPU takes the plain PyTorch version; a CUDA tensor takes
 the CUDA kernel or raises — there is no fallback. ``LAUNCHES`` counts the
-kernel's launches (and nothing else), so a run can show that its main path
-went through the kernel.
+paged kernel's launches and ``DENSE_LAUNCHES`` the dense kernel's (and
+nothing else), so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attn import paged_kernel
-from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attn import kernel, paged_kernel
+from repro_torch.kernels.decode_attn.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+)
 
-LAUNCHES = 0
+LAUNCHES = 0        # paged_decode_attention_op's kernel
+DENSE_LAUNCHES = 0  # decode_attention_op's kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,4 +88,63 @@ def paged_decode_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+def check_dense_inputs(q, k_cache, v_cache, lengths):
+    """Validate the operands the dense decode kernel takes; returns (dtype
+    code, B, H, KV, L, hd)."""
+    tensors = (q, k_cache, v_cache, lengths)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("decode attention: all operands on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode attention: operands must be contiguous")
+    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype or lengths.dtype != torch.int32:
+        raise ValueError(f"decode attention: dtypes q/k/v {q.dtype}, "
+                         f"{k_cache.dtype}, {v_cache.dtype} (one of "
+                         f"{list(_DTYPE_CODES)}), lengths {lengths.dtype} "
+                         f"(int32)")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode attention: shapes q {tuple(q.shape)}, "
+                         f"cache {tuple(k_cache.shape)}")
+    B, H, hd = q.shape
+    _, L, KV, hd_k = k_cache.shape
+    if k_cache.shape[0] != B or lengths.shape != (B,) or hd_k != hd \
+            or L == 0 or H % KV:
+        raise ValueError(f"decode attention: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    if hd not in (64, 128) or H // KV > kernel.MAX_GROUP:
+        raise ValueError(f"decode attention: head_dim {hd} must be 64 or "
+                         f"128 and H/KV={H // KV} at most {kernel.MAX_GROUP}")
+    return _DTYPE_CODES[q.dtype], B, H, KV, L, hd
+
+
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Single-query attention over a dense cache.
+
+    q [B,H,hd]; k/v_cache [B,L,KV,hd]; lengths [B] int32 valid-key counts
+    (keys at positions >= lengths[b] are masked; a row of length 0 gives 0
+    on the card) -> [B,H,hd] in q's dtype.
+    """
+    global DENSE_LAUNCHES
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention: no kernel for {q.device}")
+    code, B, H, KV, L, hd = check_dense_inputs(q, k_cache, v_cache,
+                                               lengths)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    err = kernel.fn()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, H, KV, L, hd,
+        code, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention: CUDA error {err}")
+    DENSE_LAUNCHES += 1
     return out

@@ -1,8 +1,9 @@
 """Transformer block wiring, dense only (``repro.models.blocks``):
-pre-norm residual or Cohere-style parallel attention + FFN."""
+pre-norm residual or Cohere-style parallel attention + FFN, over a whole
+sequence or one decode token, and the per-layer decode cache."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,14 +29,50 @@ def attn_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return spec
 
 
-def attn_block_full(params, x: torch.Tensor, cfg: ModelConfig,
-                    positions: torch.Tensor,
-                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a_out = attn_mod.attention_full(params["attn"], h, cfg, positions,
-                                    pad_mask)
+def _ffn_out(params, x: torch.Tensor, h: torch.Tensor, a_out: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Residual + FFN after the attention output ``a_out`` of ``h`` =
+    ln1(x), sequential or parallel."""
     if cfg.parallel_block:
         return x + a_out + swiglu(params["ffn"], h)
     x = x + a_out
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + swiglu(params["ffn"], h2)
+
+
+def attn_block_full(params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None, *, flash: bool = False
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Returns (x, kv) with kv the block's (k, v), the cacheables for a
+    prefill (the reference also returns an auxiliary loss, zero for the
+    dense blocks ported here). ``flash``: see ``attention_full``."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    a_out, kv = attn_mod.attention_full(params["attn"], h, cfg, positions,
+                                        pad_mask, window, flash=flash)
+    return _ffn_out(params, x, h, a_out, cfg), kv
+
+
+def attn_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                      cache: Dict[str, torch.Tensor],
+                      index: attn_mod.DecodeIndex
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B, d]; cache: this layer's {"k", "v"}, written in place; index:
+    ``attention.decode_index`` of the token, shared by every layer.
+    Returns (x, cache)."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    a_out, cache = attn_mod.attention_decode(params["attn"], h, cfg, cache,
+                                             index)
+    return _ffn_out(params, x, h, a_out, cfg), cache
+
+
+def attn_cache_for(cfg: ModelConfig, batch: int, max_len: int, *,
+                   window: Optional[int] = None,
+                   dtype: Optional[torch.dtype] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """One layer's decode cache: a ring of ``window`` positions when that
+    is shorter than ``max_len``."""
+    L = min(max_len, window) if window else max_len
+    return attn_mod.init_kv_cache(cfg, batch, L, dtype=dtype, device=device)

@@ -2,7 +2,7 @@
 (``repro.models.layers``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,15 +33,27 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(float(theta), exps)
 
 
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 (cos, sin) [..., seq, 1, head_dim / 2] of the rotary angles
+    at ``positions`` [..., seq], broadcast over heads."""
+    freqs = rope_freqs(head_dim, theta, positions.device)      # [half]
+    angles = positions.float()[..., None] * freqs               # [..., S, half]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-half rotary embedding with float32 angles.
 
     x: [..., seq, heads, head_dim]; positions: [..., seq] (int)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)           # [half]
-    angles = positions.float()[..., None] * freqs               # [..., S, half]
-    cos = torch.cos(angles)[..., None, :]                       # over heads
-    sin = torch.sin(angles)[..., None, :]
+    return apply_rope_cos_sin(x, *rope_cos_sin(positions, x.shape[-1],
+                                               theta))
+
+
+def apply_rope_cos_sin(x: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor) -> torch.Tensor:
+    """``apply_rope`` with the angles' (cos, sin) from ``rope_cos_sin``."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -280,6 +280,16 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
+def step_annotation(step: int):
+    """``torch.profiler.record_function`` named for the outer training
+    step — groups device activity per step in a captured profile; active
+    only under ``annotate_profiler=True``, as ``annotate``."""
+    if not _ANNOTATE:
+        return _NOOP_ANNOTATION
+    import torch
+    return torch.profiler.record_function(f"train_step_{step}")
+
+
 # ----------------------------------------------------- phase classification
 # Canonical leaf spans per loop phase. Aggregations (the report CLI, the
 # quick-bench breakdown) sum ONLY these names so nested wrappers (e.g. the

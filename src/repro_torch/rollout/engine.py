@@ -1,10 +1,17 @@
-"""Rollout batches (``repro.rollout.engine``, in part).
+"""Batched autoregressive rollout engine (``repro.rollout.engine``).
+
+``RolloutEngine.generate`` prefills the (right-padded, ragged) prompts
+into a dense cache, then runs ``max_new`` steps of on-device sampling and
+``decode_step``, and returns the sequences, per-token behaviour log-probs
+and the response mask, stamped with the policy version the async runtime
+gives it. The loop makes one device-to-host transfer, at its end. Weights
+are passed per call: the async runtime swaps them under the engine, as an
+inference engine receiving weight updates.
 
 ``RolloutBatch`` is the host-side record of one generation batch that the
 trainer assembles into a ``TrainBatch``. ``rollout_batch`` builds one from
 the continuous-batching engine's finished ``Request``s, as the reference's
-``ServingControlPlane.rollout_batch`` does. The batched ``RolloutEngine``
-itself is not ported yet.
+``ServingControlPlane.rollout_batch`` does.
 """
 from __future__ import annotations
 
@@ -12,8 +19,15 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.data import tokenizer as tok
+from repro_torch.models import model as M
+from repro_torch.models.layers import logits_from_hidden
+from repro_torch.models.params import unstack_layers
+from repro_torch.obs.tracing import annotate, span
+from repro_torch.rollout.sampler import fused_sample_step
 
 
 @dataclasses.dataclass
@@ -74,3 +88,91 @@ def rollout_batch(reqs: List, prompt_pad: int, max_new: int,
     return RolloutBatch(tokens=tokens, prompt_lengths=lengths,
                         gen_logp=gen_logp, gen_mask=gen_mask,
                         version=batch_version, gen_versions=gen_versions)
+
+
+@torch.no_grad()
+def _generate(params, cfg: ModelConfig, prompts: torch.Tensor,
+              prompt_lengths: torch.Tensor,
+              generator: Optional[torch.Generator], max_new: int,
+              temperature: float, top_p: float,
+              greedy: bool = False) -> torch.Tensor:
+    """The device side of ``generate`` (the reference's ``_generate_jit``):
+    prompts [B,P] int64 and prompt_lengths [B] int32 on the device ->
+    float64 [3, B, max_new] of (token, behaviour logp, mask). Nothing here
+    reads a device value on the host."""
+    B, P = prompts.shape
+    with span("prefill", batch=B, tokens=P):
+        hidden, cache = M.prefill(params, cfg, prompts,
+                                  lengths=prompt_lengths,
+                                  max_len=P + max_new)
+        rows = torch.arange(B, device=prompts.device)
+        last_h = hidden[rows, prompt_lengths.long() - 1]
+        logits = logits_from_hidden(params["embedding"], last_h, cfg)
+    layers = unstack_layers(params["blocks"], cfg.num_layers)
+    done = torch.zeros((B,), dtype=torch.bool, device=prompts.device)
+    steps = []
+    for t in range(max_new):
+        with span("decode_step", step=t):
+            token, logp, mask, done = fused_sample_step(
+                logits, generator, done, temperature=temperature,
+                top_p=top_p, greedy=greedy)
+            logits, cache = M.decode_step(params, cfg, cache, token,
+                                          layers=layers)
+            steps.append(torch.stack([token.double(), logp.double(),
+                                      mask.double()]))
+    return torch.stack(steps, dim=-1)
+
+
+class RolloutEngine:
+    """Holds generation settings; weights are passed per call (the async
+    runtime swaps them under us, exactly like an inference engine receiving
+    weight updates). They run on the device they lie on."""
+
+    def __init__(self, cfg: ModelConfig, rl: Optional[RLConfig] = None,
+                 max_new_tokens: int = 16):
+        self.cfg = cfg
+        self.rl = rl or RLConfig()
+        self.max_new_tokens = max_new_tokens
+
+    def generate(self, params, prompts: np.ndarray,
+                 prompt_lengths: np.ndarray,
+                 generator: Optional[torch.Generator] = None, *,
+                 version: int = 0, greedy: bool = False) -> RolloutBatch:
+        """prompts [B,P] right-padded, prompt_lengths [B] -> a stamped
+        ``RolloutBatch``. ``generator`` (on the weights' device) drives the
+        sampling, as the reference's key; ``greedy`` ignores it."""
+        device = params["embedding"]["embed"].device
+        with span("rollout_generate", batch=int(prompts.shape[0]),
+                  max_new=self.max_new_tokens, version=version), \
+                annotate("rollout_generate"):
+            packed = _generate(
+                params, self.cfg,
+                torch.as_tensor(np.asarray(prompts), dtype=torch.long)
+                .to(device),
+                torch.as_tensor(np.asarray(prompt_lengths),
+                                dtype=torch.int32).to(device),
+                generator, self.max_new_tokens, self.rl.temperature,
+                self.rl.top_p, greedy)
+            out = packed.cpu().numpy()  # the one device-to-host transfer
+        toks = out[0].astype(np.int32)
+        B, P = prompts.shape
+        N = toks.shape[1]
+        full = np.concatenate([np.asarray(prompts, np.int32),
+                               np.full((B, N), tok.PAD, np.int32)], axis=1)
+        # place generated tokens right after each ragged prompt
+        cols = np.asarray(prompt_lengths, np.int64)[:, None] + np.arange(N)
+        np.put_along_axis(full, cols, toks, axis=1)
+        return RolloutBatch(
+            tokens=full,
+            prompt_lengths=np.asarray(prompt_lengths),
+            gen_logp=out[1].astype(np.float32),
+            gen_mask=out[2].astype(np.float32),
+            version=version,
+        )
+
+    def completions(self, batch: RolloutBatch) -> list:
+        """Generated token ids per sequence (the tokens after each
+        prompt; decoding stops at EOS)."""
+        N = batch.gen_logp.shape[1]
+        return [batch.tokens[b, L: L + N]
+                for b, L in enumerate(np.asarray(batch.prompt_lengths))]

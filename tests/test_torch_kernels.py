@@ -4,7 +4,9 @@ The port's plain versions (``repro_torch.kernels.*.ref``) run the same
 numpy-made inputs as the JAX Pallas kernels (interpret mode) and the JAX
 references, over sweeps that mirror ``tests/test_kernels.py``: for paged
 attention GQA / MHA / MQA, shuffled block tables with unmapped (-1)
-entries, packed prefill chunks with padding rows; for the training kernels
+entries, packed prefill chunks with padding rows; for dense decode and
+causal flash attention ragged lengths, windows and ragged sequence
+lengths; for the training kernels
 (fused A-3PO loss, token logprob + entropy) their forwards, and their
 backwards through the autograd ``Function``s against ``jax.grad``.
 float32, tolerance 2e-5 unless stated. The CUDA kernels themselves run
@@ -20,12 +22,18 @@ import jax.numpy as jnp
 from repro.kernels.a3po_loss.kernel import a3po_loss_pallas
 from repro.kernels.a3po_loss.ops import a3po_objective as jax_a3po_objective
 from repro.kernels.a3po_loss.ref import a3po_loss_ref as jax_a3po_ref
+from repro.kernels.decode_attn.kernel import decode_attention_pallas
+from repro.kernels.decode_attn.ops import (
+    decode_attention_op as jax_decode_op,
+)
 from repro.kernels.decode_attn.paged_kernel import (
     paged_decode_attention_pallas,
 )
 from repro.kernels.decode_attn.ref import (
     paged_decode_attention_ref as jax_decode_ref,
 )
+from repro.kernels.flash_attn.kernel import flash_attention_pallas
+from repro.kernels.flash_attn.ref import flash_attention_ref as jax_flash_ref
 from repro.kernels.logprob.kernel import token_logprob_entropy_pallas
 from repro.kernels.logprob.ref import (
     token_logprob_entropy_ref as jax_logprob_ref,
@@ -38,7 +46,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.a3po_loss import ops as aops
 from repro_torch.kernels.a3po_loss.ref import a3po_loss_bwd_ref, a3po_loss_ref
 from repro_torch.kernels.decode_attn import ops as dops
-from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attn.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+)
+from repro_torch.kernels.flash_attn import ops as fops
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.logprob import ops as lops
 from repro_torch.kernels.logprob.ref import (
     token_logprob_entropy_bwd_ref,
@@ -225,9 +238,10 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     back to anything."""
     srcs = _build.sources()
     assert set(srcs) == {"paged_decode_attn", "paged_prefill_attn",
-                         "a3po_loss", "token_logprob_entropy"}
+                         "a3po_loss", "token_logprob_entropy",
+                         "decode_attn", "flash_attn"}
     targets = {_build._target(n).name for n in srcs}
-    assert len(targets) == 4
+    assert len(targets) == 6
     assert all(t.startswith("lib") and t.endswith(".so") for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -287,6 +301,156 @@ def test_bf16_tolerance_sees_a_missing_key(kernel):
     with pytest.raises(AssertionError, match="kernel vs plain"):
         cs._hold(torch, {"name": kernel}, wrong["one_key_short"].to(
             torch.bfloat16), ref, cs.TOL["bfloat16"], {})
+
+
+# ------------------------------------------------ dense decode, flash attention
+def _flash_inputs(seed, B, H, KV, S, hd):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    k = rng.standard_normal((B, KV, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, KV, S, hd)).astype(np.float32)
+    return q, k, v
+
+
+FLASH_SWEEP = [
+    # B, H, KV, S, hd, window, Pallas block
+    (2, 4, 2, 64, 64, None, 32),     # GQA, two query/key blocks
+    (1, 6, 2, 64, 128, 16, 16),      # Qwen2.5-1.5B group (G=3), window 16
+    (2, 4, 1, 96, 64, None, 96),     # MQA, S 96
+    (1, 2, 1, 96, 64, 40, 32),       # toy-2m heads, window over blocks
+]
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,window,blk", FLASH_SWEEP)
+def test_flash_ref_vs_jax(B, H, KV, S, hd, window, blk):
+    """Port plain version == JAX Pallas kernel (interpret) == JAX ref."""
+    q, k, v = _flash_inputs(S + hd, B, H, KV, S, hd)
+    out = flash_attention_ref(*_t(q, k, v), window=window)
+    o_pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), bq=blk, bk=blk,
+                                      window=window, interpret=True)
+    o_ref = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(o_pallas), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(o_ref), rtol=TOL,
+                               atol=TOL)
+
+
+def _dense_cache(seed, B, L, KV, hd):
+    """Random caches, lengths in [1, L] with one row at L and one at 1."""
+    rng = np.random.default_rng(seed)
+    kc = rng.standard_normal((B, L, KV, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, L, KV, hd)).astype(np.float32)
+    lengths = rng.integers(1, L + 1, size=B).astype(np.int32)
+    lengths[0], lengths[-1] = L, 1
+    return kc, vc, lengths
+
+
+DENSE_DECODE_SWEEP = [
+    # B, H, KV, L, hd
+    (3, 4, 2, 48, 64),     # GQA
+    (4, 12, 2, 64, 128),   # Qwen2.5-1.5B heads (G=6)
+    (2, 2, 1, 32, 64),     # toy-2m heads
+    (3, 8, 8, 40, 64),     # MHA
+]
+
+
+@pytest.mark.parametrize("B,H,KV,L,hd", DENSE_DECODE_SWEEP)
+def test_dense_decode_ref_vs_jax(B, H, KV, L, hd):
+    """Port plain version == JAX Pallas kernel (interpret) == JAX op."""
+    kc, vc, lengths = _dense_cache(B * L, B, L, KV, hd)
+    q = np.random.default_rng(L).standard_normal((B, H, hd)).astype(
+        np.float32)
+    out = decode_attention_ref(*_t(q, kc, vc, lengths))
+    o_pallas = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kc),
+                                       jnp.asarray(vc), jnp.asarray(lengths),
+                                       interpret=True)
+    o_op = jax_decode_op(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                         jnp.asarray(lengths))
+    np.testing.assert_allclose(out.numpy(), np.asarray(o_pallas), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(o_op), rtol=TOL,
+                               atol=TOL)
+
+
+def test_dense_ops_on_cpu_take_plain_version_and_count_nothing():
+    """On CPU tensors flash attention and dense decode return their plain
+    versions' results and never touch a kernel or its launch counter."""
+    q, k, v = _t(*_flash_inputs(3, 2, 4, 2, 40, 64))
+    kc, vc, lengths = _t(*_dense_cache(4, 2, 40, 2, 64))
+    f0, d0 = fops.LAUNCHES, dops.DENSE_LAUNCHES
+    torch.testing.assert_close(fops.flash_attention(q, k, v, window=8),
+                               flash_attention_ref(q, k, v, window=8),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        dops.decode_attention_op(q[:, :, 0], kc, vc, lengths),
+        decode_attention_ref(q[:, :, 0], kc, vc, lengths), rtol=0, atol=0)
+    assert (fops.LAUNCHES, dops.DENSE_LAUNCHES) == (f0, d0)
+
+
+def test_dense_kernel_input_checks():
+    """The flash and dense decode wrappers' checks reject what their
+    kernels do not take; flash takes strided [B,S,H,hd] activations."""
+    act = torch.zeros(2, 24, 4, 64, dtype=torch.bfloat16)  # [B,S,H,hd]
+    kv = torch.zeros(2, 24, 2, 64, dtype=torch.bfloat16)
+    q, k = act.transpose(1, 2), kv.transpose(1, 2)
+    assert fops.check_inputs(q, k, k, None) == 1
+    assert fops.check_inputs(q.float(), k.float(), k.float(), 5) == 0
+    bad_flash = [
+        (q, k.float(), k, None),                       # mixed dtypes
+        (q[..., :32], k[..., :32], k[..., :32], None),  # head_dim 32
+        (q.transpose(2, 3), k, k, None),               # hd not contiguous
+        (torch.zeros(2, 24, 3, 64).transpose(1, 2), k.float(), k.float(),
+         None),                                        # H % KV
+        (torch.zeros(2, 24, 4, 72, dtype=torch.bfloat16)[..., 4:68]
+         .transpose(1, 2), k, k, None),                # unaligned bf16 rows
+        (q, k, k, 0),                                  # window < 1
+        (q, k[:, :, :20], k[:, :, :20], None),          # S mismatch
+    ]
+    for args in bad_flash:
+        with pytest.raises(ValueError):
+            fops.check_inputs(*args)
+    qd = torch.zeros(3, 4, 64)
+    kc = torch.zeros(3, 16, 2, 64)
+    lens = torch.ones(3, dtype=torch.int32)
+    assert dops.check_dense_inputs(qd, kc, kc, lens) == (0, 3, 4, 2, 16, 64)
+    bad_decode = [
+        (qd, kc, kc, lens.long()),                     # int64 lengths
+        (qd, kc.transpose(1, 2), kc.transpose(1, 2), lens),  # strided
+        (qd.bfloat16(), kc, kc, lens),                 # mixed dtypes
+        (torch.zeros(3, 18, 64), kc, kc, lens),        # group of 9
+        (qd, kc, kc, lens[:2]),                        # B mismatch
+    ]
+    for args in bad_decode:
+        with pytest.raises(ValueError):
+            dops.check_dense_inputs(*args)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "dense_decode"])
+def test_bf16_tolerance_sees_a_missing_key_dense(kernel):
+    """chip_smoke.py's bf16 check passes the plain version rounded to bf16
+    and fails the wrong references it holds each dense kernel against: a
+    flash attention that masks the diagonal, a decode of lengths - 1."""
+    cs = _chip_smoke()
+    if kernel == "flash":
+        q, k, v = (t.to(torch.bfloat16).float()
+                   for t in _t(*_flash_inputs(5, 2, 12, 2, 200, 128)))
+        ref = flash_attention_ref(q, k, v)
+        wrong = {"diagonal_masked": cs._masked_diagonal_ref(torch, q, k, v)}
+    else:
+        kc, vc, lengths = _t(*_dense_cache(6, 4, 300, 2, 128))
+        kc, vc = kc.to(torch.bfloat16).float(), vc.to(torch.bfloat16).float()
+        q = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (4, 12, 128)).astype(np.float32)).to(torch.bfloat16).float()
+        ref = decode_attention_ref(q, kc, vc, lengths)
+        wrong = {"lengths_minus_one": decode_attention_ref(
+            q, kc, vc, (lengths - 1).clamp_min(1))}
+    rec = {"name": kernel}
+    cs._hold(torch, rec, ref.to(torch.bfloat16), ref, cs.TOL["bfloat16"],
+             wrong)
+    assert rec["worst_err_over_tol"] < 0.5
+    assert min(rec["wrong_kernel_err_over_tol"].values()) > 2.0
 
 
 # ------------------------------------------------------------ training kernels
@@ -582,3 +746,55 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
                                    atol=1e-5 * float(r.abs().max()))
     assert lops.LAUNCHES["forward"] - f0 == 1
     assert lops.LAUNCHES["backward"] - b0 == -(-T // lops.CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 1e-4)])
+@pytest.mark.parametrize("B,H,KV,S,hd,window,layout", [
+    (2, 12, 2, 200, 128, None, "bshd"),   # Qwen heads, ragged S, strided
+    (2, 12, 2, 256, 128, 64, "bhsd"),     # window across key tiles
+    (3, 2, 1, 37, 64, None, "bhsd"),      # toy-2m heads, S < one key tile
+    (1, 16, 2, 130, 64, None, "bshd"),    # group of 8
+])
+def test_cuda_flash_vs_plain(cuda_device, dtype, rtol, atol, B, H, KV, S,
+                             hd, window, layout):
+    """Flash attention kernel against its plain version in float32 on the
+    same input values (bf16: relative tolerance for the output rounding,
+    as chip_smoke.py), with [B,S,H,hd] activations read and written in
+    place through their strides; one launch each."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _flash_inputs(S * hd, B, H, KV, S, hd))
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    f0 = fops.LAUNCHES
+    out = fops.flash_attention(q, k, v, window=window)
+    assert out.stride() == q.stride()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    assert fops.LAUNCHES - f0 == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 1e-4)])
+@pytest.mark.parametrize("B,H,KV,L,hd", [(5, 12, 2, 1056, 128),
+                                         (3, 2, 1, 40, 64),
+                                         (2, 16, 2, 300, 64)])
+def test_cuda_dense_decode_vs_plain(cuda_device, dtype, rtol, atol, B, H,
+                                    KV, L, hd):
+    """Dense decode kernel against its plain version in float32 on the same
+    input values, lengths 1 and L included; a row of length 0 gives 0; one
+    launch per call."""
+    kc, vc, lengths = (torch.from_numpy(a).to(cuda_device)
+                       for a in _dense_cache(B + L, B, L, KV, hd))
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    q = torch.randn(B, H, hd, device=cuda_device).to(dtype)
+    d0 = dops.DENSE_LAUNCHES
+    out = dops.decode_attention_op(q, kc, vc, lengths)
+    ref = decode_attention_ref(q.float(), kc.float(), vc.float(), lengths)
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    lengths[1] = 0
+    assert bool((dops.decode_attention_op(q, kc, vc, lengths)[1] == 0).all())
+    assert dops.DENSE_LAUNCHES - d0 == 2

@@ -165,6 +165,106 @@ def test_forward_logits_matches_jax(which, request):
     np.testing.assert_allclose(lg_t.numpy(), _np(lg_j), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("which,window", [("toy_ckpt", None),
+                                          ("qwen_reduced", None),
+                                          ("toy_ckpt", 7)])
+def test_prefill_and_decode_match_jax(which, window, request):
+    """Dense prefill (flash attention op, no pad mask) and four decode
+    steps (dense decode op, in-place cache writes) == the JAX model's
+    ``prefill`` / ``decode_step`` on the same weights and right-padded
+    prompts: hidden states of valid rows, cache entries at positions below
+    each row's length, and every decode step's logits. With a window the
+    prompts fill the rows and the decode wraps the ring."""
+    jcfg, jparams, tcfg, tparams = request.getfixturevalue(which)
+    rng = np.random.default_rng(5)
+    B, P, n_dec = 3, 6 if window else 11, 4
+    toks = rng.integers(4, tcfg.vocab_size, size=(B, P)).astype(np.int32)
+    lengths = np.full((B,), P, np.int32) if window else \
+        np.array([P, 7, 2], np.int32)
+    steps = rng.integers(4, tcfg.vocab_size, size=(n_dec, B)).astype(
+        np.int32)
+    h_j, c_j = jmodel.prefill(jparams, jcfg, jnp.asarray(toks),
+                              lengths=jnp.asarray(lengths),
+                              max_len=P + n_dec, window=window)
+    h_t, c_t = tmodel.prefill(tparams, tcfg,
+                              torch.from_numpy(toks.astype(np.int64)),
+                              lengths=torch.from_numpy(lengths),
+                              max_len=P + n_dec, window=window)
+    assert c_t["attn"]["k"].shape == c_j["attn"]["k"].shape
+
+    def same_cache(cj, ct, lens):
+        L = ct["attn"]["k"].shape[2]
+        for name in ("k", "v"):
+            for b, n in enumerate(lens):
+                n = min(int(n), L)
+                np.testing.assert_allclose(
+                    ct["attn"][name][:, b, :n].numpy(),
+                    _np(cj["attn"][name][:, b, :n]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(ct["lengths"].numpy(),
+                                      _np(cj["lengths"]))
+
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(h_t[b, :n].numpy(), _np(h_j[b, :n]),
+                                   rtol=1e-4, atol=1e-4)
+    same_cache(c_j, c_t, lengths)
+    for i in range(n_dec):
+        lg_j, c_j = jmodel.decode_step(jparams, jcfg, c_j,
+                                       jnp.asarray(steps[i]), window=window)
+        lg_t, c_t = tmodel.decode_step(tparams, tcfg, c_t,
+                                       torch.from_numpy(steps[i].astype(
+                                           np.int64)), window=window)
+        assert lg_t.dtype == torch.float32
+        np.testing.assert_allclose(lg_t.numpy(), _np(lg_j), rtol=1e-4,
+                                   atol=1e-4)
+        same_cache(c_j, c_t, lengths + i + 1)
+
+
+def test_decode_step_writes_the_cache_in_place():
+    """decode_step writes each layer's key and value into the cache
+    tensors it was given (one indexed write at each row's length) and
+    returns a dict sharing them, with lengths + 1; init_cache is zero."""
+    cfg = _f32(get_config("toy-2m"))
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(1),
+                                device="cpu")
+    cache = tmodel.init_cache(cfg, 2, 5, device="cpu")
+    assert cache["attn"]["k"].shape == (cfg.num_layers, 2, 5,
+                                        cfg.num_kv_heads,
+                                        cfg.resolved_head_dim)
+    assert not cache["attn"]["k"].any() and cache["lengths"].dtype == \
+        torch.int32
+    cache["lengths"] = torch.tensor([0, 3], dtype=torch.int32)
+    k_before = cache["attn"]["k"].clone()
+    _, new = tmodel.decode_step(params, cfg, cache, torch.tensor([5, 6]))
+    assert new["attn"]["k"] is cache["attn"]["k"]
+    assert new["lengths"].tolist() == [1, 4]
+    changed = (cache["attn"]["k"] != k_before).any(dim=(0, 3, 4))
+    assert changed.tolist() == [[True, False, False, False, False],
+                                [False, False, False, True, False]]
+
+
+def test_kv_cache_helpers_match_jax():
+    """init_kv_cache / prefill_into_cache / attn_cache_for give the JAX
+    package's caches (the port writes in place)."""
+    from repro.models import blocks as jblocks
+    from repro_torch.models import blocks as tblocks
+    cfg, jcfg = _f32(get_config("toy-2m")), _f32(jax_get_config("toy-2m"))
+    rng = np.random.default_rng(9)
+    k, v = (rng.standard_normal((2, 5, 1, 64)).astype(np.float32)
+            for _ in range(2))
+    jc = jattn.prefill_into_cache(
+        jattn.init_kv_cache(jcfg, 2, 8, dtype=jnp.float32), jnp.asarray(k),
+        jnp.asarray(v))
+    tc = tattn.init_kv_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    assert tattn.prefill_into_cache(tc, torch.from_numpy(k),
+                                    torch.from_numpy(v)) is tc
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tc[name].numpy(), _np(jc[name]))
+    for window in (None, 4):
+        jl = jblocks.attn_cache_for(jcfg, 2, 8, abstract=True, window=window)
+        tl = tblocks.attn_cache_for(cfg, 2, 8, window=window, device="cpu")
+        assert tl["k"].shape == jl["k"].shape
+
+
 def test_from_jax_formats_and_param_tree(qwen_reduced):
     """Flat checkpoint keys and the nested pytree give the same tree; the
     module indexes like the dict and keeps the JAX layouts."""
