@@ -81,7 +81,31 @@ Phases, each printing one JSON line:
              weights (the parameters move, the step-0 tree keeps its
              values) and the threaded AsyncOrchestrator (one record per
              step, staleness within the gate).
-11. the kernels line, then the contract line (last):
+11. ssd kernels — the SSD decode step (8 slots, hd 64, nh 32 / ds 128 and
+             nh 64 / ds 64) and the SSD intra-chunk block (8 rows x chunk
+             256 at both models' widths, and x 64; and the paged engine's
+             own shapes, one row of 256 and a ragged one of 232 at both
+             widths) on bf16 inputs (xdt and
+             state float32) against their plain versions in float32 on the
+             same values, with wrong references the tolerance must fail
+             (decode: the decay left out; intra-chunk: the diagonal j = i
+             dropped, an exclusive cumsum); the decode kernel in place under
+             a mask leaves masked rows untouched; each timed beside its
+             bound and its plain version (no single library call computes
+             either).
+12. ssm serving — mamba2-370m (48 SSM layers) and zamba2-1.2b (32 SSM
+             layers + 6 applications of one shared attention block) at full
+             width and depth, bf16, seeded random weights: 16 requests
+             through 8 slots of the paged engine (horizon 8, greedy,
+             prefill chunks of 256), launch counts of both SSD kernels (and
+             of the paged kernels for zamba2), pool and SSM slots drained,
+             every token and behaviour logp held against forward_logits
+             (phase 4's tolerances and floors); the same in float32; one
+             dense RolloutEngine.generate of the ragged prompts, held the
+             same way; the traced prefill / decode split, the device idle
+             share of a profiled run and peak memory.
+13. the kernels line (all ten kernels, each with the shape its ms and
+             bound belong to), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -93,6 +117,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -104,7 +129,7 @@ ROOT = Path(__file__).resolve().parent
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, flop/s by type
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 # Kernel vs plain version, elementwise |out - ref| <= atol + rtol * |ref|.
 # The plain version runs in float32 on the kernel's own (bf16 or float32)
 # input values. The kernel accumulates in float32 and rounds only its
@@ -830,6 +855,7 @@ def _all_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
     from repro_torch.kernels.prefill_attn import ops as pops
+    from repro_torch.kernels.ssd import ops as sops
     return {"paged_decode_attention": dops.LAUNCHES,
             "paged_prefill_attention": pops.LAUNCHES,
             "a3po_loss": aops.LAUNCHES["forward"],
@@ -837,7 +863,9 @@ def _all_counts():
             "token_logprob_entropy": lops.LAUNCHES["forward"],
             "token_logprob_entropy_bwd": lops.LAUNCHES["backward"],
             "flash_attention": fops.LAUNCHES,
-            "decode_attention": dops.DENSE_LAUNCHES}
+            "decode_attention": dops.DENSE_LAUNCHES,
+            "ssd_decode_step": sops.LAUNCHES["ssd_decode_step"],
+            "ssd_intra_chunk": sops.LAUNCHES["ssd_intra_chunk"]}
 
 
 def _reset_counts():
@@ -846,11 +874,12 @@ def _reset_counts():
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
     from repro_torch.kernels.prefill_attn import ops as pops
+    from repro_torch.kernels.ssd import ops as sops
     dops.LAUNCHES = 0
     dops.DENSE_LAUNCHES = 0
     pops.LAUNCHES = 0
     fops.LAUNCHES = 0
-    for d in (aops.LAUNCHES, lops.LAUNCHES):
+    for d in (aops.LAUNCHES, lops.LAUNCHES, sops.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -1820,6 +1849,326 @@ def phase_training_f32(torch):
           kernel_launches})
 
 
+# ------------------------------------------------------------ SSM / hybrid
+# The two SSD kernels at the serving shapes of both families: decode at 8
+# slots, hd 64, (nh, ds) = (32, 128) for mamba2-370m and (64, 64) for
+# zamba2-1.2b; the intra-chunk block (model, rows, chunk, nh, ds) at 8 rows
+# x chunk 256 and 8 x 64, and at the shapes the paged engine launches: one
+# prefilling slot's row, a full chunk of 256 (most of its launches) or a
+# ragged tail (232: the last chunk of a 1000-token prompt). The kernels
+# line carries the 1 x 256 mamba2 shape.
+SSD_DECODE_SHAPES = (("mamba2-370m", 32, 128), ("zamba2-1.2b", 64, 64))
+SSD_INTRA_SHAPES = (("mamba2-370m", 8, 256, 32, 128),
+                    ("mamba2-370m", 8, 64, 32, 128),
+                    ("zamba2-1.2b", 8, 256, 64, 64),
+                    ("mamba2-370m", 1, 256, 32, 128),
+                    ("mamba2-370m", 1, 232, 32, 128),
+                    ("zamba2-1.2b", 1, 256, 64, 64),
+                    ("zamba2-1.2b", 1, 232, 64, 64))
+SSD_INTRA_LINE = ("mamba2-370m", 1, 256)
+SSD_SLOTS, SSD_HD = 8, 64
+# softplus'd dt of the test operands: log-uniform in [1e-3, 0.5]
+LOG_DT_LO, LOG_DT_HI = math.log(1e-3), math.log(0.5)
+# Intra-chunk kernel vs its plain version in float32 on the same values:
+# float32 sums of up to 256 terms in another order, and the in-chunk
+# cumsum in another order (its rounding moves a decay exp(cum_i - cum_j)
+# by ~1e-5 relative at |cum| ~ 100): |out - ref| <= 1e-4 |ref| + 1e-4
+# max|ref|. A reference without the diagonal j = i, or with an exclusive
+# cumsum, moves the outputs by ~10% of their size and must fail it.
+SSD_INTRA_RTOL = 1e-4
+# At the reference's init stds both random models repeat their last token
+# at logp ~0 (the tied embedding dominates), and at x2 and x4 they still
+# do (mean logp -0.06 / -3.6 for mamba2, -0.32 / -2.0 for zamba2, one
+# distinct token per request; NVIDIA H100). With every SSM block's in_proj
+# and out_proj scaled x8 (not a_log or dt_bias), the layers decide the
+# tokens (mean logp -6.2 / -5.2), as phase 4's x8 does for Qwen.
+SSM_SCALE = {"mamba2-370m": 8.0, "zamba2-1.2b": 8.0}
+
+
+def _ssd_decode_inputs(torch, g, nh, ds):
+    """Decode operands as the serving path gives them: bf16 x, b, c and
+    a_log (A uniform in [1, 16]), float32 state and softplus'd dt
+    (log-uniform in [1e-3, 0.5])."""
+    B, hd = SSD_SLOTS, SSD_HD
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    state = rnd(B, nh, hd, ds)
+    x, b, c = (t.to(torch.bfloat16) for t in (rnd(B, nh, hd), rnd(B, ds),
+                                              rnd(B, ds)))
+    u = torch.rand(B, nh, generator=g, device="cuda")
+    dt = torch.exp(u * (LOG_DT_HI - LOG_DT_LO) + LOG_DT_LO)
+    a_log = torch.log(1.0 + 15.0 * torch.rand(
+        nh, generator=g, device="cuda")).to(torch.bfloat16)
+    return state, x, dt, a_log, b, c
+
+
+def _ssd_intra_inputs(torch, g, B, L, nh, ds):
+    """Intra-chunk operands as ssd_scan gives them: xdt = x * dt and la =
+    -dt * A in float32 (x bf16 values, dt log-uniform in [1e-3, 0.5], A in
+    [1, 16]), b / c bf16 slices of one conv output (strided rows)."""
+    hd = SSD_HD
+    x = torch.randn(B, L, nh, hd, generator=g, device="cuda").to(
+        torch.bfloat16).float()
+    u = torch.rand(B, L, nh, generator=g, device="cuda")
+    dt = torch.exp(u * (LOG_DT_HI - LOG_DT_LO) + LOG_DT_LO)
+    A = 1.0 + 15.0 * torch.rand(nh, generator=g, device="cuda")
+    xbc = torch.randn(B, L, 2 * ds + 8, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    return (x * dt[..., None]).contiguous(), -dt * A, xbc[..., :ds], \
+        xbc[..., ds:2 * ds]
+
+
+def _exclusive_la(torch, la, L):
+    """la whose in-chunk inclusive cumsum is the exclusive cumsum of la."""
+    B, S, nh = la.shape
+    c = la.reshape(B, S // L, L, nh)
+    return torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]],
+                     dim=2).reshape(B, S, nh)
+
+
+def phase_ssd_kernels(torch):
+    """Both SSD kernels on bf16 inputs (xdt and state float32, as the path
+    gives them) against their plain versions in float32 on the same
+    values, with wrong references the tolerance must fail by a wide
+    margin, timed beside the bound and the plain version."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import (
+        ssd_decode_step_ref,
+        ssd_intra_chunk_ref,
+    )
+
+    t_phase = time.perf_counter()
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    results = {}
+    for model, nh, ds in SSD_DECODE_SHAPES:
+        state, x, dt, a_log, b, c = _ssd_decode_inputs(torch, g, nh, ds)
+        y, new = sops.ssd_decode_step(state, x, dt, a_log, b, c)
+        args32 = (state, x.float(), dt, a_log.float(), b.float(), c.float())
+        y_ref, new_ref = ssd_decode_step_ref(*args32)
+        no_decay = (*args32[:3], torch.full_like(args32[3], float("-inf")),
+                    *args32[4:])
+        y_w, new_w = ssd_decode_step_ref(*no_decay)
+        rec = {"phase": "kernel", "name": "ssd_decode_step", "model": model,
+               "dtype": "bfloat16", "shape": {"B": SSD_SLOTS, "nh": nh,
+                                              "hd": SSD_HD, "ds": ds},
+               "library": "none (no single call)"}
+        sub = {"y": {"name": "ssd_decode_step.y"},
+               "state": {"name": "ssd_decode_step.state"}}
+        _hold(torch, sub["y"], y, y_ref, TOL["bfloat16"],
+              {"decay_left_out": y_w})
+        _hold(torch, sub["state"], new, new_ref, TOL["float32"],
+              {"decay_left_out": new_w})
+        # in place under the engine's emit mask: masked rows untouched
+        pool = state.clone()
+        update = torch.arange(SSD_SLOTS, device="cuda") % 4 != 3
+        sops.ssd_decode_step(pool, x, dt, a_log, b, c, out=pool,
+                             update=update)
+        if not (torch.equal(pool[~update], state[~update])
+                and torch.equal(pool[update], new[update])):
+            raise AssertionError(f"ssd_decode_step in place: {rec}")
+        rec.update(checks=sub, max_abs_err=max(
+            s["max_abs_err"] for s in sub.values()))
+        n_state = state.numel()
+        nbytes = (2 * 4 * n_state + 2 * 2 * x.numel() + 2 * 2 * b.numel()
+                  + 4 * dt.numel() + 2 * nh)
+        flops = 5 * n_state  # update: mul + fma; y: fma
+        # timed in place with every row updated: the full state read and
+        # write the bound counts
+        rec.update(_times(
+            torch, timer, "float32", nbytes, flops,
+            lambda: sops.ssd_decode_step(pool, x, dt, a_log, b, c, out=pool),
+            lambda: ssd_decode_step_ref(state, x, dt, a_log, b, c), None,
+            iters=50))
+        if model == "mamba2-370m":
+            results["ssd_decode_step"] = rec
+        emit(rec)
+    for model, B, L, nh, ds in SSD_INTRA_SHAPES:
+        xdt, la, b, c = _ssd_intra_inputs(torch, g, B, L, nh, ds)
+        outs = sops.ssd_intra_chunk(xdt, la, b, c, L)
+        b32, c32 = b.float(), c.float()
+        refs = ssd_intra_chunk_ref(xdt, la, b32, c32, L)
+        excl = ssd_intra_chunk_ref(xdt, _exclusive_la(torch, la, L), b32,
+                                   c32, L)
+        diag = (c32 * b32).sum(-1)[..., None, None] * xdt
+        rec = {"phase": "kernel", "name": "ssd_intra_chunk", "model": model,
+               "dtype": "bfloat16 b/c, float32 xdt/la",
+               "shape": {"B": B, "S": L, "chunk": L, "nh": nh, "hd": SSD_HD,
+                         "ds": ds}, "library": "none (no single call)"}
+        sub = {}
+        for i, label in enumerate(("y_intra", "s_local", "cdec")):
+            wrong = {"exclusive_cumsum": excl[i]}
+            if label == "y_intra":
+                wrong["diagonal_dropped"] = refs[0] - diag
+            tol = {"rtol": SSD_INTRA_RTOL,
+                   "atol": SSD_INTRA_RTOL * refs[i].abs().max().item()}
+            sub[label] = {"name": f"ssd_intra_chunk.{label}"}
+            _hold(torch, sub[label], outs[i], refs[i], tol, wrong)
+        rec.update(checks=sub, max_abs_err=max(
+            s["max_abs_err"] for s in sub.values()))
+        del refs, excl, diag
+        pairs = L * (L + 1) // 2
+        nbytes = (4 * (2 * xdt.numel() + la.numel())
+                  + 2 * (b.numel() + c.numel())
+                  + 4 * (B * nh * SSD_HD * ds + B * nh))
+        # C_i . B_j once per (batch, chunk); y and s_local per head; float32
+        # operands, so the tensor cores' TF32 rate bounds the operations
+        flops = 2 * B * (pairs * ds + nh * pairs * SSD_HD
+                         + nh * L * SSD_HD * ds)
+        rec.update(_times(
+            torch, timer, "tf32", nbytes, flops,
+            lambda: sops.ssd_intra_chunk(xdt, la, b, c, L),
+            lambda: ssd_intra_chunk_ref(xdt, la, b, c, L), None,
+            iters=20, plain_iters=5))
+        if (model, B, L) == SSD_INTRA_LINE:
+            results["ssd_intra_chunk"] = rec
+        emit(rec)
+    emit({"phase": "ssd_kernels_done",
+          "phase_s": time.perf_counter() - t_phase})
+    return results
+
+
+def _scale_ssm(params, factor):
+    """Scale every SSM block's in_proj and out_proj in place."""
+    if factor == 1.0:
+        return
+    tree = params["blocks"] if "blocks" in params else params["ssm_blocks"]
+    for name in ("in_proj", "out_proj"):
+        tree["ssm"][name].mul_(factor)
+
+
+def _rollout_ragged(torch, M, cfg, params, reqs):
+    """One dense RolloutEngine.generate of ``reqs`` right-padded to the
+    longest (prompts of unequal length), every token and behaviour logp
+    held against forward_logits. Returns (record, launches)."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.rollout.engine import RolloutEngine
+
+    P = max(len(r) for r in reqs)
+    prompts = np.zeros((len(reqs), P), np.int32)
+    lengths = np.array([len(r) for r in reqs], np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, : len(r)] = r
+    engine = RolloutEngine(cfg, max_new_tokens=MAX_NEW)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rb = engine.generate(params, prompts, lengths, greedy=True)
+    elapsed = time.perf_counter() - t0
+    launches = {k: v for k, v in _all_counts().items() if v}
+    done = []
+    for i, r in enumerate(reqs):
+        n = int(rb.gen_mask[i].sum())
+        gen = rb.tokens[i, len(r): len(r) + n]
+        if n != MAX_NEW and gen[-1] != 2:
+            raise AssertionError(f"rollout row {i}: mask {rb.gen_mask[i]}")
+        done.append(SimpleNamespace(rid=i, prompt=r, generated=gen.tolist(),
+                                    gen_logp=rb.gen_logp[i, :n].tolist()))
+    checks = _reference_checks(torch, M, cfg, params, done, ENGINE_GAP_TOL,
+                               ENGINE_LOGP_TOL)
+    return {"batch": list(prompts.shape), "elapsed_s": elapsed,
+            "tokens_per_s": int(rb.gen_mask.sum()) / elapsed,
+            "launches": launches, "reference_checks": checks}
+
+
+def phase_ssm_serving(torch, name):
+    """One SSM / hybrid model at full width and depth, bf16, seeded random
+    weights: the paged engine serves 16 requests through 8 slots (horizon
+    8, greedy, prefill chunks of 256), every token and behaviour logp held
+    against the whole-sequence forward_logits (which runs the intra-chunk
+    kernel; the engine's decode runs the decode kernel); the same in
+    float32; one dense RolloutEngine.generate over the ragged prompts; the
+    traced prefill / decode split, the device idle share and peak memory.
+    Returns the SSD kernels' launches in the served run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.obs.tracing import phase_breakdown
+
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16)
+    _scale_ssm(params, SSM_SCALE[name])
+    prompts = _requests(cfg)
+    _serve(torch, cfg, params, prompts[:2])  # warm-up
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # what is already allocated (the weights, and anything earlier phases
+    # still hold) counts in the peak; reported beside it
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    eng, done, elapsed = _serve(torch, cfg, params, prompts)
+    kinds = ["ssd_decode_step", "ssd_intra_chunk"]
+    if cfg.arch_type == "hybrid":
+        kinds += ["paged_decode_attention", "paged_prefill_attention"]
+    launches = {k: _all_counts()[k] for k in kinds}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{launches}")
+    _check_served(eng, done, prompts)
+    if eng.ssm_pool.n_free != ENGINE_KW["max_seqs"]:
+        raise AssertionError(f"{name}: SSM slots not released: "
+                             f"{eng.ssm_pool.mapped}")
+    checks = _reference_checks(torch, M, cfg, params, done, ENGINE_GAP_TOL,
+                               ENGINE_LOGP_TOL)
+    n_gen = sum(len(r.generated) for r in done)
+    n_prompt = sum(len(r.prompt) for r in done)
+    emit({"phase": "ssm_serving", "model": name, "layers": cfg.num_layers,
+          "block_kinds": {k: cfg.block_kinds().count(k)
+                          for k in ("ssm", "attn")},
+          "params_b": sum(t.numel() for t in params.parameters()) / 1e9,
+          "dtype": "bfloat16", "ssm_proj_scale": SSM_SCALE[name],
+          "engine": ENGINE_KW, "max_new": MAX_NEW, "requests": len(done),
+          "prompt_tokens": n_prompt, "generated_tokens": n_gen,
+          "elapsed_s": elapsed, "tokens_per_s": n_gen / elapsed,
+          "prefill_chunks": eng.prefill_launches,
+          "decode_launches": eng.decode_launches,
+          "host_syncs": eng.host_syncs, "launches": launches,
+          "peak_mem_gb": peak_gb, "allocated_before_gb": base_gb,
+          "reference_checks": checks})
+    del eng
+
+    params.to(torch.float32)  # exact both ways for bf16 values
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng32, done32, _ = _serve(torch, cfg32, params, prompts)
+    _check_served(eng32, done32, prompts)
+    del eng32
+    emit({"phase": "ssm_serving_float32", "model": name,
+          "reference_checks": _reference_checks(
+              torch, M, cfg32, params, done32, F32_TOL, F32_TOL)})
+    params.to(torch.bfloat16)
+
+    emit(dict({"phase": "ssm_rollout", "model": name},
+              **_rollout_ragged(torch, M, cfg, params, prompts)))
+
+    tracer = _sync_tracer(torch)
+    _, done3, elapsed2 = _serve(torch, cfg, params, prompts, tracer=tracer)
+    br = phase_breakdown(tracer.events())
+    pre, dec = br["prefill"], br["decode"]
+    same = all(a.generated == b.generated for a, b in zip(
+        sorted(done, key=lambda r: r.rid), sorted(done3, key=lambda r: r.rid)))
+    if not same:
+        raise AssertionError(f"{name}: traced run generated other tokens")
+
+    def run():
+        _, _, t = _serve(torch, cfg, params, prompts[:8])
+        return t
+    prof = _device_profile(torch, run)
+    emit(dict({"phase": "ssm_serving_traced", "model": name,
+               "elapsed_s": elapsed2, "prefill_s": pre["total_s"],
+               "prefill_chunks": pre["count"],
+               "prefill_tokens_per_s": n_prompt / pre["total_s"],
+               "decode_s": dec["total_s"], "decode_horizons": dec["count"],
+               "decode_tokens_per_s": n_gen / dec["total_s"],
+               "same_tokens_as_untraced": same,
+               "profile_requests": 8,
+               "phase_s": time.perf_counter() - t_phase}, **prof))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -1841,6 +2190,12 @@ def main() -> int:
     launches.update(phase_rollout(torch))
     with tempfile.TemporaryDirectory() as tmp:
         phase_async_rl(torch, Path(tmp))
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        kernels.update(phase_ssd_kernels(torch))
+        ssm = [phase_ssm_serving(torch, name) for name in SSM_SCALE]
+    for k in ("ssd_decode_step", "ssd_intra_chunk"):
+        launches[k] = sum(run[k] for run in ssm)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),
@@ -1864,7 +2219,13 @@ def main() -> int:
         "src/repro/kernels/flash_attn/kernel.py:72"),
         "decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attn.cu",
-        "src/repro/kernels/decode_attn/kernel.py:57")}
+        "src/repro/kernels/decode_attn/kernel.py:57"),
+        "ssd_decode_step": (
+        "src/repro_torch/kernels/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:63"),
+        "ssd_intra_chunk": (
+        "src/repro_torch/kernels/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:102")}
     line = []
     for name, (source, replaces) in src.items():
         k = kernels[name]
@@ -1873,7 +2234,8 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+                     "library_ms": k["library_ms"],
+                     "shape": k.get("shape")})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

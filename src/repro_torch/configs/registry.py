@@ -1,10 +1,11 @@
-"""Architecture registry: ``--arch <id>`` resolution (the paper's models
-and the toy models; the assigned architectures come with later slices)."""
+"""Architecture registry: ``--arch <id>`` resolution (the paper's models,
+the toy models, and the SSM and hybrid families; the other assigned
+architectures come with later slices)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import paper_models
+from repro_torch.configs import mamba2_370m, paper_models, zamba2_1_2b
 from repro_torch.configs.base import ModelConfig, reduced
 
 REGISTRY: Dict[str, ModelConfig] = {
@@ -12,6 +13,8 @@ REGISTRY: Dict[str, ModelConfig] = {
     "qwen3-8b": paper_models.QWEN3_8B,
     "toy-20m": paper_models.TOY_20M,
     "toy-2m": paper_models.TOY_2M,
+    "mamba2-370m": mamba2_370m.CONFIG,
+    "zamba2-1.2b": zamba2_1_2b.CONFIG,
 }
 
 

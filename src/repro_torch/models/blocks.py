@@ -1,6 +1,7 @@
-"""Transformer block wiring, dense only (``repro.models.blocks``):
-pre-norm residual or Cohere-style parallel attention + FFN, over a whole
-sequence or one decode token, and the per-layer decode cache."""
+"""Block wiring (``repro.models.blocks``): pre-norm residual or
+Cohere-style parallel attention + FFN, and the pre-norm residual Mamba2
+(SSD) block, each over a whole sequence or one decode token, and the
+per-layer attention decode cache. MLA and MoE blocks are not ported."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -9,6 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_spec,
@@ -27,6 +29,10 @@ def attn_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["ln2"] = rmsnorm_spec(d)
     spec["ffn"] = swiglu_spec(d, cfg.d_ff)
     return spec
+
+
+def ssm_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": rmsnorm_spec(cfg.d_model), "ssm": ssm_mod.ssm_spec(cfg)}
 
 
 def _ffn_out(params, x: torch.Tensor, h: torch.Tensor, a_out: torch.Tensor,
@@ -66,6 +72,30 @@ def attn_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
     a_out, cache = attn_mod.attention_decode(params["attn"], h, cfg, cache,
                                              index)
     return _ffn_out(params, x, h, a_out, cfg), cache
+
+
+def ssm_block_full(params, x: torch.Tensor, cfg: ModelConfig,
+                   pad_mask: Optional[torch.Tensor] = None,
+                   initial_cache: Optional[Dict[str, torch.Tensor]] = None,
+                   valid_lens: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (x, cache) with cache the block's final {"conv", "state"}
+    (the reference also returns an auxiliary loss, zero for SSM blocks)."""
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    y, cache = ssm_mod.ssm_full(params["ssm"], h, cfg, initial_cache,
+                                pad_mask=pad_mask, valid_lens=valid_lens)
+    return x + y, cache
+
+
+def ssm_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor],
+                     update: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B, d]; cache: this layer's {"conv", "state"}, updated in place
+    (rows where ``update`` is False keep theirs). Returns (x, cache)."""
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    y, cache = ssm_mod.ssm_decode(params["ssm"], h, cfg, cache, update)
+    return x + y, cache
 
 
 def attn_cache_for(cfg: ModelConfig, batch: int, max_len: int, *,

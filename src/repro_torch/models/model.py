@@ -1,13 +1,18 @@
-"""Dense decoder LM (``repro.models.model``, ``arch_type="dense"`` only).
+"""Decoder LM over the dense, SSM (Mamba2) and hybrid (Zamba2) families
+(``repro.models.model``; no MoE, MLA or frontend stacks yet).
 
 Public entry points: ``model_spec`` / ``init_params``; the whole-sequence
 ``forward_hidden`` / ``forward_logits`` (the training forward, and the
 reference the serving engines are checked against); and the dense-cache
 generation path of the rollout engine, ``init_cache`` / ``prefill`` /
-``decode_step``. Layers are a Python loop over the stacked leading axis
-(the reference scans it), each stacked leaf unbound once per forward; with
-``cfg.remat`` and gradients enabled each layer is recomputed in the
-backward (``torch.utils.checkpoint``), as the reference's remat does.
+``decode_step``. Layers are a Python loop over the stack (the reference
+scans it), each stacked leaf unbound once per forward (``unstack_model``);
+a hybrid stack runs its SSM blocks in order with the one shared attention
+block after every ``attn_every - 1`` of them, as ``cfg.block_kinds()``
+lists them. With ``cfg.remat`` and gradients enabled each layer is
+recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's remat does. The SSD kernels have no backward: SSM training is
+not ported, and a gradient through an SSM block on the card raises.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_spec,
 )
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import (
     ParamTree,
     SpecTree,
@@ -51,19 +57,68 @@ def require_device(device) -> torch.device:
     return device
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.frontend is not None:
+def check_arch(cfg: ModelConfig) -> None:
+    """Raise for a stack the port cannot run: it takes dense, SSM and
+    hybrid stacks without MoE, MLA or a frontend."""
+    if cfg.arch_type not in ("dense", "ssm", "hybrid") \
+            or cfg.frontend is not None or cfg.moe is not None \
+            or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only dense architectures are ported")
+            f"{cfg.name}: only dense, SSM and hybrid stacks without MoE, "
+            "MLA or a frontend are ported")
+
+
+def layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_attn, n_ssm): the attention and SSM layers of the stack, in
+    ``cfg.block_kinds()`` order (the reference's ``_layout``). The
+    attention layers of a hybrid stack all apply its one shared block."""
+    kinds = cfg.block_kinds()
+    n_attn = sum(1 for k in kinds if k == "attn")
+    if cfg.arch_type == "hybrid" and not cfg.share_attn_params:
+        raise NotImplementedError(f"{cfg.name}: hybrid wiring assumes one "
+                                  "shared attention block")
+    return n_attn, len(kinds) - n_attn
 
 
 def model_spec(cfg: ModelConfig) -> SpecTree:
-    _check_dense(cfg)
-    return {
-        "embedding": embedding_spec(cfg),
-        "final_norm": rmsnorm_spec(cfg.d_model),
-        "blocks": stack_specs(blocks.attn_block_spec(cfg), cfg.num_layers),
-    }
+    check_arch(cfg)
+    spec: SpecTree = {"embedding": embedding_spec(cfg),
+                      "final_norm": rmsnorm_spec(cfg.d_model)}
+    n_ssm = layout(cfg)[1]
+    if cfg.arch_type == "hybrid":
+        spec["ssm_blocks"] = stack_specs(blocks.ssm_block_spec(cfg), n_ssm)
+        spec["shared_attn"] = blocks.attn_block_spec(cfg)
+    elif cfg.arch_type == "ssm":
+        spec["blocks"] = stack_specs(blocks.ssm_block_spec(cfg),
+                                     cfg.num_layers)
+    else:
+        spec["blocks"] = stack_specs(blocks.attn_block_spec(cfg),
+                                     cfg.num_layers)
+    return spec
+
+
+# (kind, layer params, index among the layers of that kind): the "attn"
+# layers of a hybrid stack all hold the one shared block
+Layer = Tuple[str, Dict[str, Any], int]
+
+
+def unstack_model(params, cfg: ModelConfig) -> List[Layer]:
+    """The stack in order, each stacked leaf unbound once: [(kind, layer
+    params, index among its kind)]. An attention layer's index is its slot
+    in the attention caches, an SSM layer's its slot in the SSM caches."""
+    check_arch(cfg)
+    if cfg.arch_type != "hybrid":
+        kind = "ssm" if cfg.arch_type == "ssm" else "attn"
+        return [(kind, lp, i) for i, lp in enumerate(
+            unstack_layers(params["blocks"], cfg.num_layers))]
+    ssm_layers = unstack_layers(params["ssm_blocks"], layout(cfg)[1])
+    out: List[Layer] = []
+    n = {"attn": 0, "ssm": 0}
+    for kind in cfg.block_kinds():
+        lp = ssm_layers[n["ssm"]] if kind == "ssm" else params["shared_attn"]
+        out.append((kind, lp, n[kind]))
+        n[kind] += 1
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -79,27 +134,31 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                            requires_grad=requires_grad)
 
 
-def _block_hidden(lp, x, cfg, positions, pad_mask):
+def _block_hidden(kind, lp, x, cfg, positions, pad_mask):
+    if kind == "ssm":
+        return blocks.ssm_block_full(lp, x, cfg, pad_mask)[0]
     return blocks.attn_block_full(lp, x, cfg, positions, pad_mask)[0]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B,S] -> final-normed hidden [B,S,d]."""
-    _check_dense(cfg)
+    """tokens [B,S] -> final-normed hidden [B,S,d]. SSM blocks run the
+    chunked scan through the intra-chunk kernel op (on the card: no
+    gradient); attention runs the plain ``chunked_causal_attention``."""
     x = embed_tokens(params["embedding"], tokens, cfg)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+    for kind, lp, _ in unstack_model(params, cfg):
         if remat:
             # no randomness in a layer, so no RNG state to stash
-            x = checkpoint(_block_hidden, lp, x, cfg, positions, pad_mask,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(_block_hidden, kind, lp, x, cfg, positions,
+                           pad_mask, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            x = _block_hidden(lp, x, cfg, positions, pad_mask)
+            x = _block_hidden(kind, lp, x, cfg, positions, pad_mask)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -116,21 +175,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                window: Optional[int] = None,
                dtype: Optional[torch.dtype] = None,
                device="cuda") -> Dict[str, Any]:
-    """Stacked per-layer decode caches + per-sequence lengths:
-    {"attn": {"k", "v": [layers, batch, L, KV, hd]}, "lengths": [batch]
-    int32}, L = ``max_len`` (or ``window`` when shorter), in the model's
-    dtype unless ``dtype``."""
-    _check_dense(cfg)
+    """Stacked per-layer decode caches + per-sequence lengths, as the
+    reference's: {"attn": {"k", "v": [n_attn, batch, L, KV, hd]}} when the
+    stack has attention layers, L = ``max_len`` (or ``window`` when
+    shorter); {"ssm": {"conv": [n_ssm, batch, K-1, Cd], "state": [n_ssm,
+    batch, nh, hd, ds] float32}} when it has SSM layers; "lengths" [batch]
+    int32. In the model's dtype unless ``dtype``."""
+    check_arch(cfg)
     device = require_device(device)
-    one = blocks.attn_cache_for(cfg, batch, max_len, window=window,
-                                dtype=dtype or torch_dtype(cfg),
-                                device=device)
-    n = cfg.num_layers
-    return {"attn": {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
-                                    device=device)
-                     for k, v in one.items()},
-            "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
+    dtype = dtype or torch_dtype(cfg)
+    n_attn, n_ssm = layout(cfg)
+
+    def stack(one, n):
+        return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=device)
+                for k, v in one.items()}
+
+    cache: Dict[str, Any] = {}
+    if n_attn:
+        cache["attn"] = stack(blocks.attn_cache_for(
+            cfg, batch, max_len, window=window, dtype=dtype, device=device),
+            n_attn)
+    if n_ssm:
+        cache["ssm"] = stack(ssm_mod.init_ssm_cache(
+            cfg, batch, dtype=dtype, device=device), n_ssm)
+    cache["lengths"] = torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)
+    return cache
 
 
 # ------------------------------------------------------------------- prefill
@@ -149,10 +219,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     which are all valid, so it gets exactly what the reference's masked
     prefill gives it. Pad rows, and the cache entries at positions >=
     lengths, differ from the reference's; decode never reads them (it
-    writes position ``lengths`` before attending ``lengths + 1`` keys). No
-    gradient is recorded (the flash op is forward only).
+    writes position ``lengths`` before attending ``lengths + 1`` keys).
+
+    SSM blocks run the chunked scan with pad steps frozen (dt = 0) and
+    take each row's conv window at its true end (``valid_lens=lengths``),
+    so a short row resumes decoding exactly as its unpadded prefill would.
+    That differs from the reference on purpose: its prefill keeps the conv
+    window of the last K-1 (pad) rows. No gradient is recorded (the flash
+    and SSD ops are forward only).
     """
-    _check_dense(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
     B, S, _ = x.shape
     max_len = max_len or S
@@ -165,11 +240,20 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         lengths = torch.full((B,), S, dtype=torch.int32,
                              device=tokens.device)
     cache = init_cache(cfg, B, max_len, window=window, device=tokens.device)
-    L = cache["attn"]["k"].shape[2]
-    slots = None if S <= L else torch.arange(S - L, S,
-                                             device=tokens.device) % L
-    for i, lp in enumerate(unstack_layers(params["blocks"],
-                                          cfg.num_layers)):
+    pad_mask = torch.arange(S, device=tokens.device)[None, :] \
+        < lengths[:, None]
+    slots = None
+    if "attn" in cache:
+        L = cache["attn"]["k"].shape[2]
+        if S > L:
+            slots = torch.arange(S - L, S, device=tokens.device) % L
+    for kind, lp, i in unstack_model(params, cfg):
+        if kind == "ssm":
+            x, c = blocks.ssm_block_full(lp, x, cfg, pad_mask,
+                                         valid_lens=lengths)
+            cache["ssm"]["conv"][i] = c["conv"]
+            cache["ssm"]["state"][i] = c["state"]
+            continue
         x, (k, v) = blocks.attn_block_full(lp, x, cfg, positions, None,
                                            window, flash=True)
         for buf, new in ((cache["attn"]["k"][i], k),
@@ -186,26 +270,34 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens: torch.Tensor, window: Optional[int] = None, *,
-                layers: Optional[List[Dict[str, Any]]] = None
+                layers: Optional[List[Layer]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence: tokens [B] -> (float32 logits [B,V],
-    cache). Each layer's key and value are written into ``cache``'s
-    tensors in place; the returned cache dict shares them and carries
-    ``lengths + 1``. ``layers`` (``unstack_layers(params["blocks"])``) may
-    be passed to skip unbinding the stacked weights on every token.
-    Nothing here reads a device value on the host."""
-    _check_dense(cfg)
+    cache). Each attention layer's key and value, and each SSM layer's conv
+    window and state, are written into ``cache``'s tensors in place; the
+    returned cache dict shares them and carries ``lengths + 1``. ``layers``
+    (``unstack_model(params, cfg)``) may be passed to skip unbinding the
+    stacked weights on every token. Nothing here reads a device value on
+    the host."""
     lengths = cache["lengths"]
     if layers is None:
-        layers = unstack_layers(params["blocks"], cfg.num_layers)
+        layers = unstack_model(params, cfg)
     x = embed_tokens(params["embedding"], tokens[:, None], cfg)[:, 0]
-    ks = torch.unbind(cache["attn"]["k"], 0)
-    vs = torch.unbind(cache["attn"]["v"], 0)
-    # the cache slot, keys attended and rope angles: the same in every layer
-    index = attn_mod.decode_index(cfg, lengths, ks[0].shape[1], window)
-    for lp, kc, vc in zip(layers, ks, vs):
-        x, _ = blocks.attn_block_decode(lp, x, cfg, {"k": kc, "v": vc},
-                                        index)
+    if "attn" in cache:
+        ks = torch.unbind(cache["attn"]["k"], 0)
+        vs = torch.unbind(cache["attn"]["v"], 0)
+        # the cache slot, keys attended and rope angles: one for all layers
+        index = attn_mod.decode_index(cfg, lengths, ks[0].shape[1], window)
+    if "ssm" in cache:
+        convs = torch.unbind(cache["ssm"]["conv"], 0)
+        states = torch.unbind(cache["ssm"]["state"], 0)
+    for kind, lp, i in layers:
+        if kind == "ssm":
+            x, _ = blocks.ssm_block_decode(
+                lp, x, cfg, {"conv": convs[i], "state": states[i]})
+        else:
+            x, _ = blocks.attn_block_decode(lp, x, cfg,
+                                            {"k": ks[i], "v": vs[i]}, index)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params["embedding"], x, cfg)
     return logits, dict(cache, lengths=lengths + 1)

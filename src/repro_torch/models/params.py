@@ -25,7 +25,7 @@ from torch import nn
 class ParamSpec:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | a_log | dt_bias
     scale: Optional[float] = None  # stddev override for "normal"
 
     def __post_init__(self):
@@ -66,6 +66,18 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
         return torch.zeros(spec.shape, device=generator.device)
     if spec.init == "ones":
         return torch.ones(spec.shape, device=generator.device)
+    if spec.init == "a_log":
+        # Mamba2 A uniform in [1, 16]
+        u = torch.rand(spec.shape, generator=generator,
+                       device=generator.device)
+        return torch.log(1.0 + u * 15.0)
+    if spec.init == "dt_bias":
+        # inverse softplus of dt log-uniform in [1e-3, 1e-1]
+        u = torch.rand(spec.shape, generator=generator,
+                       device=generator.device)
+        lo, hi = np.log(1e-3), np.log(1e-1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return dt + torch.log(-torch.expm1(-dt))
     if spec.init != "normal":
         raise ValueError(f"init {spec.init!r} is not ported yet")
     std = spec.scale if spec.scale is not None else _fan_in(spec.shape) ** -0.5

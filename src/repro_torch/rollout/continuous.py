@@ -1,4 +1,4 @@
-"""Continuous batching server over the paged KV cache, dense stacks
+"""Continuous batching server over the paged KV cache
 (``repro.rollout.continuous``).
 
 Requests are admitted into fixed slots as others finish; finished
@@ -7,6 +7,13 @@ through the chunked prefill lane (segment-packed chunks of at most
 ``prefill_chunk`` tokens, resumable across launches), and decoding runs
 either one token per ``step`` or ``decode_horizon`` tokens per
 ``step_horizon`` with a single device-to-host drain per horizon.
+
+Dense attention stacks, pure SSM stacks (mamba2: a constant-size per-slot
+state pool instead of KV blocks, beside a zero-layer KV pool) and hybrid
+stacks (zamba2: SSM state slots plus the paged pool for the shared
+attention layers) are served. SSM layers decode through the SSD decode
+kernel op and prefill through the chunked SSD scan, one batch row per
+prefilling slot.
 
 The entry points (``run``, ``step``, ``step_horizon``, ``prefill_step``)
 run under ``torch.no_grad()``: serving weights that require gradients (the
@@ -29,6 +36,8 @@ from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.data import tokenizer as tok
 from repro_torch.kernels.decode_attn.ops import paged_decode_attention_op
 from repro_torch.kernels.prefill_attn.ops import paged_prefill_attention_op
+from repro_torch.models import blocks
+from repro_torch.models import model as M
 from repro_torch.models.attention import project_qkv
 from repro_torch.models.layers import (
     apply_rope,
@@ -38,7 +47,6 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.model import require_device, torch_dtype
-from repro_torch.models.params import unstack_layers
 from repro_torch.obs.tracing import annotate, span
 from repro_torch.rollout import paged_cache as pc
 from repro_torch.rollout.sampler import (
@@ -79,47 +87,71 @@ AppendAttend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
                         torch.Tensor]
 
 
-def _layers(params, cfg: ModelConfig) -> List[dict]:
-    return unstack_layers(params["blocks"], cfg.num_layers)
+def _layers(params, cfg: ModelConfig) -> List[M.Layer]:
+    return M.unstack_model(params, cfg)
 
 
-def _token_layer_stack(params, layers: List[dict], cfg: ModelConfig,
-                       positions: torch.Tensor, tokens: torch.Tensor,
-                       append_attend: AppendAttend) -> torch.Tensor:
-    """One-token-per-row transformer stack shared by the decode and prefill
-    towers: rows are slots (decode) or chunk rows (prefill), each at its own
-    ``positions``. ``append_attend`` owns the KV cache: it writes the row's
-    K/V into the pool and attends through the block table. Returns the
-    final-normed hidden [R, d]."""
-    x = embed_tokens(params["embedding"], tokens, cfg)
+def _attn_token_layer(lp, x: torch.Tensor, cfg: ModelConfig,
+                      pos: torch.Tensor, li: int,
+                      append_attend: AppendAttend) -> torch.Tensor:
+    """One attention block over rows x [R, d] at positions pos [R, 1];
+    ``append_attend`` owns the KV cache of attention layer ``li``."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    ap = lp["attn"]
+    q, k, v = project_qkv(ap, h, cfg)
     H = cfg.num_heads
+    # one rope over q‖k: positions (and their sin/cos) are shared
+    qk = apply_rope(torch.cat([q, k], dim=1)[:, None], pos,
+                    cfg.rope_theta)[:, 0]
+    o = append_attend(li, qk[:, :H].contiguous(), qk[:, H:], v)
+    y = torch.einsum("bhk,hkd->bd", o, ap["wo"])
+    if cfg.parallel_block:
+        return x + y + swiglu(lp["ffn"], h)
+    x = x + y
+    return x + swiglu(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def _token_layer_stack(params, layers: List[M.Layer], cfg: ModelConfig,
+                       positions: torch.Tensor, tokens: torch.Tensor,
+                       append_attend: AppendAttend,
+                       ssm: Optional[pc.SSMStateCache] = None,
+                       update: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """One-token-per-row stack shared by the decode and prefill towers of
+    every family (the reference's ``_token_layer_stack`` and
+    ``_multiarch_token_stack``): rows are slots (decode) or chunk rows
+    (prefill), each at its own ``positions``. ``append_attend`` owns the KV
+    cache: it writes the row's K/V into the pool and attends through the
+    block table. SSM layers advance the slot rows of the ``ssm`` pools in
+    place; ``update`` [S] bool gates that, so a masked slot carries its
+    conv window and state through bit for bit (the SSM analogue of parking
+    a KV append on the scratch block). Returns the final-normed hidden
+    [R, d]."""
+    x = embed_tokens(params["embedding"], tokens, cfg)
     pos = positions[:, None]
-    for li, lp in enumerate(layers):
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        ap = lp["attn"]
-        q, k, v = project_qkv(ap, h, cfg)
-        # one rope over q‖k: positions (and their sin/cos) are shared
-        qk = apply_rope(torch.cat([q, k], dim=1)[:, None], pos,
-                        cfg.rope_theta)[:, 0]
-        o = append_attend(li, qk[:, :H].contiguous(), qk[:, H:], v)
-        y = torch.einsum("bhk,hkd->bd", o, ap["wo"])
-        if cfg.parallel_block:
-            x = x + y + swiglu(lp["ffn"], h)
+    if ssm is not None:
+        convs = torch.unbind(ssm.conv, 0)
+        states = torch.unbind(ssm.state, 0)
+    for kind, lp, li in layers:
+        if kind == "ssm":
+            x, _ = blocks.ssm_block_decode(
+                lp, x, cfg, {"conv": convs[li], "state": states[li]}, update)
         else:
-            x = x + y
-            x = x + swiglu(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            x = _attn_token_layer(lp, x, cfg, pos, li, append_attend)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def _decode_tower(params, layers, cfg: ModelConfig, state: pc.PagedCacheState,
                   lens: torch.Tensor, tokens: torch.Tensor,
-                  write_block: torch.Tensor, offset: torch.Tensor
-                  ) -> torch.Tensor:
+                  write_block: torch.Tensor, offset: torch.Tensor,
+                  ssm: Optional[pc.SSMStateCache] = None,
+                  update: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One token per slot over the paged pool -> float32 logits [S, V].
 
-    Appends each layer's K/V at ``(write_block, offset)`` (int64 [S]) per
-    slot, in place, and attends through the block table with the paged
-    decode kernel over ``lens + 1`` keys (the just-written token included).
+    Appends each attention layer's K/V at ``(write_block, offset)`` (int64
+    [S]) per slot, in place, and attends through the block table with the
+    paged decode kernel over ``lens + 1`` keys (the just-written token
+    included); SSM layers advance the ``ssm`` pools where ``update``.
     """
     pool_k, pool_v = state.pool_k, state.pool_v
     lens1 = (lens + 1).to(torch.int32)
@@ -131,7 +163,7 @@ def _decode_tower(params, layers, cfg: ModelConfig, state: pc.PagedCacheState,
                                          state.block_tables, lens1)
 
     hidden = _token_layer_stack(params, layers, cfg, lens, tokens,
-                                append_attend)
+                                append_attend, ssm, update)
     return logits_from_hidden(params["embedding"], hidden, cfg)
 
 
@@ -152,17 +184,20 @@ def _write_targets(state: pc.PagedCacheState, lens: torch.Tensor,
 
 def _paged_decode_step(params, layers, cfg: ModelConfig,
                        state: pc.PagedCacheState, tokens: torch.Tensor,
-                       active: torch.Tensor, *, trash_block: int
+                       active: torch.Tensor, *, trash_block: int,
+                       ssm: Optional[pc.SSMStateCache] = None
                        ) -> torch.Tensor:
-    """One token for every slot against the paged pool -> logits [S, V].
+    """One token for every slot against the paged pool -> logits [S, V]
+    (with ``ssm``, the reference's ``_multiarch_decode_step``).
 
     Inactive slots (idle, or mid-prefill with live pages at their cursor)
-    have their K/V append redirected to the scratch block, so a batch-wide
-    launch never touches pages it doesn't own.
+    have their K/V append redirected to the scratch block and their SSM
+    state left as it is, so a batch-wide launch never touches state it
+    doesn't own.
     """
     wb, off = _write_targets(state, state.seq_lens, active, trash_block)
     return _decode_tower(params, layers, cfg, state, state.seq_lens, tokens,
-                         wb, off)
+                         wb, off, ssm, active)
 
 
 def _paged_decode_horizon(params, layers, cfg: ModelConfig,
@@ -170,15 +205,18 @@ def _paged_decode_horizon(params, layers, cfg: ModelConfig,
                           next_logits: torch.Tensor, budget: torch.Tensor,
                           generator: Optional[torch.Generator], *,
                           trash_block: int, horizon: int, temperature: float,
-                          top_p: float, greedy: bool):
-    """A whole decode horizon with no host round-trip inside.
+                          top_p: float, greedy: bool,
+                          ssm: Optional[pc.SSMStateCache] = None):
+    """A whole decode horizon with no host round-trip inside (with ``ssm``,
+    the reference's ``_multiarch_decode_horizon``).
 
     Each iteration samples on the device from the carried logits
     (``fused_sample_step``: PAD/zero-mask for finished rows, EOS folded
-    into the done flags), appends K/V through the block table and bumps
-    the emitting slots' lengths. ``budget`` [S] caps per-slot emissions;
-    finished or over-budget slots keep decoding masked (their writes land
-    on the scratch block).
+    into the done flags), appends K/V through the block table, advances
+    the SSM state of the emitting slots and bumps their lengths. ``budget``
+    [S] caps per-slot emissions; finished or over-budget slots keep
+    decoding masked (their writes land on the scratch block, their SSM
+    state is carried through unchanged).
 
     Returns (packed [3, horizon, S] float32 — tokens / logps / masks, for
     ONE drain to the host — lengths [S] int32, next-token logits [S, V]).
@@ -195,7 +233,7 @@ def _paged_decode_horizon(params, layers, cfg: ModelConfig,
         emit = mask > 0.0
         wb, off = _write_targets(state, lens, emit, trash_block)
         logits = _decode_tower(params, layers, cfg, state, lens, token, wb,
-                               off)
+                               off, ssm, emit)
         lens = lens + emit.to(lens.dtype)
         toks.append(token)
         logps.append(logp)
@@ -240,8 +278,72 @@ def _paged_prefill_chunk(params, layers, cfg: ModelConfig,
     return logits_from_hidden(params["embedding"], hidden[rows], cfg)
 
 
+def _multiarch_prefill_chunk(params, layers, cfg: ModelConfig,
+                             state: pc.PagedCacheState,
+                             ssm: pc.SSMStateCache, slots: List[int],
+                             tokens: np.ndarray, starts: np.ndarray,
+                             counts: np.ndarray, write_block: np.ndarray,
+                             offset: np.ndarray, last_rows: List[int]
+                             ) -> torch.Tensor:
+    """One SSM/hybrid prefill chunk, one batch row per prefilling slot.
+
+    The SSD scan is recurrent per sequence, so the prompts cannot be packed
+    into one row stream: row r of ``tokens`` [R, W] (right-padded) holds
+    ``counts[r]`` prompt tokens of ``slots[r]`` from position ``starts[r]``
+    (int64 host arrays). SSM layers run the chunked scan resuming from the
+    slots' pool rows and write them back in place; pad steps carry dt = 0,
+    so they leave the state as it is, and the conv window is taken at
+    ``counts``, so a ragged chunk resumes exactly. Hybrid attention layers
+    flatten the rows to [R*W] rows over the paged pool, as the dense chunk
+    does, each row's K/V written at ``(write_block, offset)`` ([R*W], pad
+    rows on the scratch block). ``last_rows`` are the batch rows of the
+    slots that complete their prompt here; returns their float32
+    next-token logits [len(last_rows), V].
+    """
+    dev = state.pool_k.device
+    R, W = tokens.shape
+    counts_d = torch.from_numpy(counts).to(dev)
+    cols = torch.arange(W, device=dev)
+    pad_mask = cols[None, :] < counts_d[:, None]                    # [R, W]
+    positions = torch.from_numpy(starts).to(dev)[:, None] + cols    # [R, W]
+    slot_d = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    seg = torch.where(pad_mask, slot_d[:, None], -1).reshape(-1).to(
+        torch.int32)
+    pos_flat = positions.reshape(-1)
+    pos_i32 = pos_flat.to(torch.int32)
+    wb = torch.from_numpy(write_block).to(dev)
+    off = torch.from_numpy(offset).to(dev)
+    pool_k, pool_v = state.pool_k, state.pool_v
+
+    def append_attend(li, q, k, v):
+        pool_k[li, wb, off] = k.to(pool_k.dtype)
+        pool_v[li, wb, off] = v.to(pool_v.dtype)
+        return paged_prefill_attention_op(q, pool_k[li], pool_v[li],
+                                          state.block_tables, seg, pos_i32)
+
+    x = embed_tokens(params["embedding"], torch.from_numpy(tokens).to(dev),
+                     cfg)
+    for kind, lp, li in layers:
+        if kind == "ssm":
+            c_in = {"conv": ssm.conv[li, slot_d],
+                    "state": ssm.state[li, slot_d]}
+            x, c_out = blocks.ssm_block_full(lp, x, cfg, pad_mask=pad_mask,
+                                             initial_cache=c_in,
+                                             valid_lens=counts_d)
+            ssm.conv[li, slot_d] = c_out["conv"].to(ssm.conv.dtype)
+            ssm.state[li, slot_d] = c_out["state"]
+        else:
+            x = _attn_token_layer(lp, x.reshape(R * W, -1), cfg,
+                                  pos_flat[:, None], li,
+                                  append_attend).reshape(R, W, -1)
+    rows = torch.as_tensor(last_rows, dtype=torch.long, device=dev)
+    h_last = x[rows, counts_d[rows] - 1]
+    h_last = rmsnorm(params["final_norm"], h_last, cfg.norm_eps)
+    return logits_from_hidden(params["embedding"], h_last, cfg)
+
+
 class ContinuousBatchingEngine:
-    """Paged continuous-batching server for dense stacks.
+    """Paged continuous-batching server for dense, SSM and hybrid stacks.
 
     ``device`` defaults to CUDA (and raises where there is none); pass
     ``device="cpu"`` for the plain PyTorch path. ``prefix_cache`` is the
@@ -255,10 +357,7 @@ class ContinuousBatchingEngine:
                  rl: Optional[RLConfig] = None, greedy: bool = False,
                  prefix_cache=None, decode_horizon: int = 1,
                  prefill_chunk: int = 32, device="cuda"):
-        if cfg.arch_type != "dense" or cfg.frontend is not None:
-            raise NotImplementedError(
-                f"paged serving: only dense stacks are ported, got "
-                f"{cfg.arch_type}")
+        M.check_arch(cfg)
         self.cfg = cfg
         self.device = require_device(device)
         self.rl = rl or RLConfig()
@@ -268,6 +367,23 @@ class ContinuousBatchingEngine:
         # tokens decoded per step_horizon call (1 = per-token step)
         self.decode_horizon = int(decode_horizon)
         self.prefix_cache = prefix_cache
+        # SSM/hybrid: constant-size per-slot recurrent state rides next to
+        # the paged KV pool (which has zero layers for pure-SSM stacks)
+        self.n_ssm = M.layout(cfg)[1]
+        if self.n_ssm:
+            if prefix_cache is not None:
+                raise ValueError(
+                    "the radix prefix cache shares KV blocks across "
+                    "sequences; recurrent SSM state cannot be shared so")
+            self.ssm_cache = pc.init_ssm_state_cache(
+                cfg, max_seqs=max_seqs, dtype=torch_dtype(cfg),
+                device=self.device)
+            self.ssm_pool = pc.SSMSlotPool(max_seqs)
+        else:
+            self.ssm_cache = None
+            self.ssm_pool = None
+        # the control plane checks this before attaching a radix cache
+        self.supports_prefix_cache = self.n_ssm == 0
         # reserve the last block as the scratch target for idle slots
         self.allocator = pc.BlockAllocator(n_blocks - 1)
         self.trash_block = n_blocks - 1
@@ -388,6 +504,10 @@ class ContinuousBatchingEngine:
             pc.map_sequence(self.state, self.allocator, slot,
                             P + req.max_new)
         req.prefill_pos = n_matched
+        if self.ssm_pool is not None:
+            # fresh sequence: map the slot and zero its recurrent state
+            self.ssm_pool.map(slot)
+            pc.ssm_reset_slots(self.ssm_cache, [slot])
         self._logits_version[slot] = version
         self._sync_mirrors()
 
@@ -408,7 +528,17 @@ class ContinuousBatchingEngine:
     def _gather_prefill_work(self) -> List[tuple]:
         """Pack pending prompt tokens into one chunk: [(slot, start, n)],
         shortest-remaining-first; a long prompt takes whatever chunk
-        capacity is left, so it still progresses every launch."""
+        capacity is left, so it still progresses every launch.
+
+        SSM/hybrid stacks cannot pack segments into one row stream (the
+        SSD scan is recurrent per sequence), so each prefilling slot owns a
+        batch row instead and advances by up to a full chunk per launch.
+        """
+        if self.n_ssm:
+            return [(s, self.slots[s].prefill_pos,
+                     min(len(self.slots[s].prompt)
+                         - self.slots[s].prefill_pos, self.prefill_chunk))
+                    for s in sorted(self.prefilling_slots())]
         order = sorted(
             self.prefilling_slots(),
             key=lambda s: (len(self.slots[s].prompt)
@@ -428,6 +558,9 @@ class ContinuousBatchingEngine:
     def _prefill_chunk_launch(self, params, work: List[tuple],
                               version: int) -> None:
         """One segment-packed chunk launch over ``[(slot, start, n)]``."""
+        if self.n_ssm:
+            self._multiarch_prefill_launch(params, work, version)
+            return
         n_rows = sum(n for _, _, n in work)
         tokens = np.empty((n_rows,), np.int64)
         seg = np.empty((n_rows,), np.int32)
@@ -476,6 +609,55 @@ class ContinuousBatchingEngine:
                     self.prefix_cache.insert(
                         r.prompt,
                         [int(b) for b in self._tables[slot][:n_blocks]])
+
+    def _multiarch_prefill_launch(self, params, work: List[tuple],
+                                  version: int) -> None:
+        """One batched SSM/hybrid prefill launch over ``[(slot, start,
+        n)]``: each slot owns a row of a [len(work), max n] batch."""
+        R, W = len(work), max(n for _, _, n in work)
+        tokens = np.full((R, W), tok.PAD, np.int64)
+        starts = np.zeros((R,), np.int64)
+        counts = np.zeros((R,), np.int64)
+        last_rows: List[int] = []
+        completing: List[int] = []
+        for r, (slot, start, n) in enumerate(work):
+            tokens[r, :n] = self.slots[slot].prompt[start: start + n]
+            starts[r], counts[r] = start, n
+            if start + n == len(self.slots[slot].prompt):
+                last_rows.append(r)
+                completing.append(slot)
+        slots = [slot for slot, _, _ in work]
+        with span("prefill_chunk", rows=int(counts.sum()), width=W,
+                  segments=R, version=version, completed=len(completing)):
+            self._prepare_decode({slot: n for slot, _, n in work})
+            # each flattened row's K/V target (hybrid attention layers);
+            # pad rows land on the scratch block
+            bs, mb = self.state.block_size, self.state.max_blocks
+            pos = starts[:, None] + np.arange(W)
+            valid = np.arange(W)[None, :] < counts[:, None]
+            blk = self._tables[np.asarray(slots)[:, None],
+                               np.minimum(pos // bs, mb - 1)]
+            wb = np.where(valid, np.maximum(blk, 0),
+                          self.trash_block).astype(np.int64)
+            off = np.where(valid, pos % bs, 0)
+            logits = _multiarch_prefill_chunk(
+                params, _layers(params, self.cfg), self.cfg, self.state,
+                self.ssm_cache, slots, tokens, starts, counts,
+                wb.reshape(-1), off.reshape(-1), last_rows)
+            if completing:
+                self._next_logits[torch.as_tensor(
+                    completing, device=self.device)] = logits
+            inc = np.zeros((self.max_seqs,), np.int32)
+            inc[slots] = counts
+            self.state.seq_lens += torch.from_numpy(inc).to(self.device)
+        self.prefill_launches += 1
+        self.prefill_chunk_tokens += int(counts.sum())
+        for slot, start, n in work:
+            r = self.slots[slot]
+            r.prefill_pos = start + n
+            self._lens[slot] += n
+            if r.prefill_done:
+                self._logits_version[slot] = version
 
     def _sync_mirrors(self) -> None:
         """Refresh host mirrors from the device (admission only — the
@@ -577,7 +759,7 @@ class ContinuousBatchingEngine:
         # only read after their completion chunk overwrites them
         self._next_logits = _paged_decode_step(
             params, _layers(params, self.cfg), self.cfg, self.state, tokens,
-            active_d, trash_block=self.trash_block)
+            active_d, trash_block=self.trash_block, ssm=self.ssm_cache)
         self.state.seq_lens += active_d.to(torch.int32)
         self._lens += active_arr
         self.last_emitted = len(active)
@@ -633,7 +815,7 @@ class ContinuousBatchingEngine:
                 None if self.greedy else self._generator(generator),
                 trash_block=self.trash_block, horizon=H,
                 temperature=self.rl.temperature, top_p=self.rl.top_p,
-                greedy=self.greedy)
+                greedy=self.greedy, ssm=self.ssm_cache)
         self.state.seq_lens.copy_(lens)
         self._next_logits = logits
         drained = packed.cpu().numpy()  # the one blocking drain per horizon
@@ -678,6 +860,10 @@ class ContinuousBatchingEngine:
         reset the mirrors + slot bookkeeping (callers push to device)."""
         self.allocator.release(
             [int(b) for b in self._tables[slot] if b >= 0])
+        if self.ssm_pool is not None:
+            # stale recurrent state stays in the pool; the next map of
+            # this slot zeroes it (ssm_reset_slots in start_prefill)
+            self.ssm_pool.release(slot)
         self._tables[slot] = -1
         self._tables[slot, 0] = self.trash_block
         self._lens[slot] = 0

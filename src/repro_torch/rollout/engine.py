@@ -25,7 +25,6 @@ from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.data import tokenizer as tok
 from repro_torch.models import model as M
 from repro_torch.models.layers import logits_from_hidden
-from repro_torch.models.params import unstack_layers
 from repro_torch.obs.tracing import annotate, span
 from repro_torch.rollout.sampler import fused_sample_step
 
@@ -108,7 +107,7 @@ def _generate(params, cfg: ModelConfig, prompts: torch.Tensor,
         rows = torch.arange(B, device=prompts.device)
         last_h = hidden[rows, prompt_lengths.long() - 1]
         logits = logits_from_hidden(params["embedding"], last_h, cfg)
-    layers = unstack_layers(params["blocks"], cfg.num_layers)
+    layers = M.unstack_model(params, cfg)
     done = torch.zeros((B,), dtype=torch.bool, device=prompts.device)
     steps = []
     for t in range(max_new):

@@ -1,15 +1,19 @@
-"""Paged KV cache, dense parts (``repro.rollout.paged_cache``).
+"""Paged KV cache and the SSM state slot pool
+(``repro.rollout.paged_cache``).
 
 Layout:
-  pool_k/pool_v : [n_layers, n_blocks, block_size, KV, hd]
+  pool_k/pool_v : [n_attn_layers, n_blocks, block_size, KV, hd]
   block_tables  : [max_seqs, max_blocks_per_seq] int32 (-1 = unmapped)
   seq_lens      : [max_seqs] int32
+  ssm conv      : [n_ssm_layers, max_seqs, d_conv-1, conv_dim]
+  ssm state     : [n_ssm_layers, max_seqs, nh, hd, d_state] float32
 
-Unlike the JAX package's immutable arrays, the port updates the pool,
+Unlike the JAX package's immutable arrays, the port updates the pools,
 tables and lengths in place (no second pool is ever allocated); the
 functions still return the state so call sites read like the reference.
-Block bookkeeping is on the host (``BlockAllocator``, and the engine's
-numpy mirrors of the tables and lengths).
+Block and slot bookkeeping is on the host (``BlockAllocator``,
+``SSMSlotPool``, and the engine's numpy mirrors of the tables and
+lengths).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import layout
 
 
 @dataclasses.dataclass
@@ -94,9 +99,14 @@ class BlockAllocator:
 def init_paged_cache(cfg: ModelConfig, *, n_blocks: int, block_size: int,
                      max_seqs: int, max_blocks_per_seq: int,
                      dtype: torch.dtype, device) -> PagedCacheState:
-    if cfg.mla is not None or cfg.arch_type != "dense":
-        raise NotImplementedError("paged cache: dense GQA/MHA stacks only")
-    shape = (cfg.num_layers, n_blocks, block_size, cfg.num_kv_heads,
+    """One pool layer per attention layer: an attention-free (pure SSM)
+    stack gets a zero-layer pool, so the block and length bookkeeping stays
+    the same for every family at no memory cost."""
+    if cfg.mla is not None or cfg.arch_type not in ("dense", "ssm",
+                                                    "hybrid"):
+        raise NotImplementedError("paged cache: GQA/MHA attention, SSM and "
+                                  "hybrid stacks only")
+    shape = (layout(cfg)[0], n_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return PagedCacheState(
         pool_k=torch.zeros(shape, dtype=dtype, device=device),
@@ -105,6 +115,101 @@ def init_paged_cache(cfg: ModelConfig, *, n_blocks: int, block_size: int,
                                 dtype=torch.int32, device=device),
         seq_lens=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
     )
+
+
+# ------------------------------------------------------------ SSM state pool
+@dataclasses.dataclass
+class SSMStateCache:
+    """Constant-size per-slot recurrent state for SSM/hybrid decode.
+
+    Unlike KV, Mamba2 state does not grow with the sequence, so no block
+    table is needed: engine slot ``i`` owns row ``i`` of each pool.
+
+      conv  : [n_ssm_layers, max_seqs, d_conv-1, conv_dim]  (model dtype)
+      state : [n_ssm_layers, max_seqs, nh, hd, d_state]     (float32)
+
+    The engine updates both in place.
+    """
+    conv: torch.Tensor
+    state: torch.Tensor
+
+    @property
+    def max_seqs(self) -> int:
+        return self.conv.shape[1]
+
+    @property
+    def n_layers(self) -> int:
+        return self.conv.shape[0]
+
+
+def init_ssm_state_cache(cfg: ModelConfig, *, max_seqs: int,
+                         dtype: torch.dtype, device) -> SSMStateCache:
+    if cfg.ssm is None:
+        raise ValueError("SSM state cache needs cfg.ssm")
+    s, d = cfg.ssm, cfg.d_model
+    n_ssm = layout(cfg)[1]
+    conv_dim = s.d_inner(d) + 2 * s.d_state
+    return SSMStateCache(
+        conv=torch.zeros((n_ssm, max_seqs, s.d_conv - 1, conv_dim),
+                         dtype=dtype, device=device),
+        state=torch.zeros((n_ssm, max_seqs, s.num_heads(d), s.head_dim,
+                           s.d_state), dtype=torch.float32, device=device))
+
+
+def ssm_reset_slots(cache: SSMStateCache, slots) -> SSMStateCache:
+    """Zero the conv window and state of ``slots`` (fresh sequences), in
+    place."""
+    idx = torch.as_tensor(slots, dtype=torch.long, device=cache.conv.device)
+    cache.conv[:, idx] = 0
+    cache.state[:, idx] = 0.0
+    return cache
+
+
+def ssm_fork_slot(cache: SSMStateCache, src: int, dst: int) -> SSMStateCache:
+    """Clone slot ``src``'s recurrent state into ``dst``, in place: the SSM
+    analogue of ``fork_block`` (state is private per slot, so a fork is a
+    plain copy)."""
+    cache.conv[:, dst] = cache.conv[:, src]
+    cache.state[:, dst] = cache.state[:, src]
+    return cache
+
+
+class SSMSlotPool:
+    """Host-side lifecycle mirror for SSM-state slots.
+
+    Constant-size state needs no free list (slot ids are the engine's
+    own), but the lifecycle mirrors ``BlockAllocator``'s: map on admit,
+    release on finish or preemption (a released slot is zeroed again
+    before reuse), fork when a mapped slot's state is cloned. Double map
+    and double release fail as assertions at once, as the KV path's
+    refcount errors do.
+    """
+
+    def __init__(self, max_seqs: int):
+        self.max_seqs = max_seqs
+        self.mapped: set = set()
+        self.forks = 0  # state clones performed (metrics)
+
+    def map(self, slot: int) -> None:
+        assert 0 <= slot < self.max_seqs, f"SSM slot {slot} out of range"
+        assert slot not in self.mapped, f"double map of SSM slot {slot}"
+        self.mapped.add(slot)
+
+    def release(self, slot: int) -> None:
+        assert slot in self.mapped, f"release of unmapped SSM slot {slot}"
+        self.mapped.discard(slot)
+
+    def fork(self, src: int, dst: int) -> None:
+        assert src in self.mapped, f"fork from unmapped SSM slot {src}"
+        self.map(dst)
+        self.forks += 1
+
+    def is_mapped(self, slot: int) -> bool:
+        return slot in self.mapped
+
+    @property
+    def n_free(self) -> int:
+        return self.max_seqs - len(self.mapped)
 
 
 def _set_row(state: PagedCacheState, slot: int, table: np.ndarray,

@@ -239,9 +239,9 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     srcs = _build.sources()
     assert set(srcs) == {"paged_decode_attn", "paged_prefill_attn",
                          "a3po_loss", "token_logprob_entropy",
-                         "decode_attn", "flash_attn"}
+                         "decode_attn", "flash_attn", "ssd"}
     targets = {_build._target(n).name for n in srcs}
-    assert len(targets) == 6
+    assert len(targets) == 7
     assert all(t.startswith("lib") and t.endswith(".so") for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

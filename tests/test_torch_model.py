@@ -72,11 +72,13 @@ def _np(x):
 def test_configs_are_copies():
     """The port's registry resolves the same configs, -reduced included."""
     for name in ("qwen2.5-1.5b", "qwen3-8b", "toy-2m", "toy-20m",
-                 "qwen2.5-1.5b-reduced", "toy-2m-reduced"):
+                 "qwen2.5-1.5b-reduced", "toy-2m-reduced", "mamba2-370m",
+                 "zamba2-1.2b", "mamba2-370m-reduced",
+                 "zamba2-1.2b-reduced"):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_get_config(name))
     with pytest.raises(KeyError):
-        get_config("mamba2-370m")
+        get_config("qwen3-moe-30b-a3b")
 
 
 def test_rmsnorm_rope_swiglu_embed_head_match_jax():
