@@ -17,7 +17,12 @@ Phases, each printing one JSON line:
              the tolerance fails a kernel one key or one page short, and
              the times of kernel, plain version and a library yardstick
              (SDPA over K/V gathered to dense, never called by the port),
-             beside the least time the card could take.
+             beside the least time the card could take. Paged decode also
+             runs at the paged engine's own lengths (its first 8 prompts +
+             16), at zamba2's shared-attention heads (H 32, KV 32, hd 64),
+             both timed, and at lengths on split and page boundaries with a
+             wrong reference one key short past a split boundary; each
+             decode record gives the wrapper's split plan.
 4. engine  — serves 16 seeded requests through 8 slots of the port's
              ContinuousBatchingEngine with Qwen2.5-1.5B at full width and
              depth (28 layers, bf16, seeded random weights, layer weights
@@ -60,7 +65,8 @@ Phases, each printing one JSON line:
              each against its plain version in float32 on the same values
              within 1e-4 + 1e-2 |ref|, which a wrong reference must fail
              (flash: the diagonal masked; decode: lengths - 1), timed beside
-             its bound, its plain version and SDPA as a yardstick.
+             its bound, its plain version and SDPA as a yardstick (flash
+             also in TFLOP/s).
 9. rollout — the dense RolloutEngine (prefill through the flash kernel,
              decode through the dense decode kernel) at Qwen2.5-1.5B, full
              width and depth, bf16, layer weights x8: PR 11's 16 requests
@@ -269,18 +275,23 @@ class Timer:
         return total / iters
 
 
-def _pool(torch, g, *, n_blocks, bs, KV, hd, S, mb, max_len, dtype):
-    """A shuffled pool, ragged lengths in [1, max_len], tables mapped up to
-    each slot's length and -1 beyond (as the engine leaves them)."""
+def _pool(torch, g, *, n_blocks, bs, KV, hd, S, mb, max_len, dtype,
+          lengths=None):
+    """A shuffled pool, ragged lengths in [1, max_len] (or ``lengths``),
+    tables mapped up to each slot's length and -1 beyond (as the engine
+    leaves them)."""
     pool_k = torch.randn(n_blocks, bs, KV, hd, generator=g,
                          device="cuda").to(dtype)
     pool_v = torch.randn(n_blocks, bs, KV, hd, generator=g,
                          device="cuda").to(dtype)
     perm = torch.randperm(n_blocks, generator=g, device="cuda")
     tables = perm[: S * mb].reshape(S, mb).to(torch.int32)
-    lengths = torch.randint(1, max_len + 1, (S,), generator=g,
-                            device="cuda").to(torch.int32)
-    lengths[0] = max_len  # one slot filled to the whole table
+    if lengths is not None:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    else:
+        lengths = torch.randint(1, max_len + 1, (S,), generator=g,
+                                device="cuda").to(torch.int32)
+        lengths[0] = max_len  # one slot filled to the whole table
     for s in range(S):
         tables[s, -(-int(lengths[s]) // bs):] = -1
     return pool_k, pool_v, tables, lengths
@@ -365,7 +376,8 @@ def phase_kernels(torch):
         rec = {"phase": "kernel", "name": "paged_decode_attention",
                "dtype": dname, "shape": {"S": S, "H": H, "KV": KV, "hd": hd,
                                          "bs": bs, "mb": mb,
-                                         "keys": n_keys}}
+                                         "keys": n_keys},
+               "splits": _decode_splits(torch, mb, bs, S, KV)}
         _hold(torch, rec, out, dref(lengths), tol, wrong)
         rec["max_abs_err_vs_plain_in_" + dname] = (
             out.float() - paged_decode_attention_ref(
@@ -432,7 +444,88 @@ def phase_kernels(torch):
                               plain_iters=5))
             results["paged_prefill_attention"] = rec
         emit(rec)
+    for case in _decode_cases(torch):
+        emit(_decode_case(torch, timer, g, **case))
     return results
+
+
+def _decode_splits(torch, mb, bs, S, KV):
+    """The paged decode wrapper's split plan for these sizes."""
+    from repro_torch.kernels.decode_attn import paged_kernel
+    pps, n = paged_kernel.split_plan(
+        mb, bs, S, KV, paged_kernel.sm_count(torch.cuda.current_device()))
+    return {"pages_per_split": pps, "n_splits": n, "split_keys": pps * bs}
+
+
+def _decode_cases(torch):
+    """Paged decode beyond the timed shape: the paged engine's own lengths
+    (its first 8 prompts + 16 generated tokens), zamba2's shared attention
+    heads, and lengths on split and page boundaries (the wrapper's split
+    length sk and page 16) with a wrong reference one key short at the row
+    one key past a split boundary."""
+    from repro_torch.configs.registry import get_config
+    eng = [len(r) + 16 for r in _requests(get_config("qwen2.5-1.5b"))[:8]]
+    sk = _decode_splits(torch, 128, 16, 8, 2)["split_keys"]
+    return [
+        dict(label="engine_lengths", H=12, KV=2, hd=128, lengths=eng,
+             timed=True),
+        dict(label="zamba2_heads", H=32, KV=32, hd=64, lengths=None,
+             timed=True),
+        dict(label="split_boundaries", H=12, KV=2, hd=128,
+             lengths=[2048, sk + 1, sk, sk - 1, 2 * sk + 1, 16, 17, 1],
+             timed=False,
+             short_rows={"one_key_short_past_a_split": 1}),
+    ]
+
+
+def _decode_case(torch, timer, g, *, label, H, KV, hd, lengths, timed,
+                 short_rows=None):
+    """Paged decode in bf16 at 8 slots, bs 16, mb 128 (lengths None: ragged
+    up to 2048) against its plain version in float32, with wrong
+    references one key and one page short at the longest row (and one key
+    short at each row of ``short_rows``) that must fail; timed beside its
+    bound, its plain version and SDPA over gathered K/V."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+    S, bs, mb, n_blocks = 8, 16, 128, 4096
+    pool_k, pool_v, tables, lens = _pool(
+        torch, g, n_blocks=n_blocks, bs=bs, KV=KV, hd=hd, S=S, mb=mb,
+        max_len=2048, dtype=torch.bfloat16, lengths=lengths)
+    q = torch.randn(S, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    out = dops.paged_decode_attention_op(q, pool_k, pool_v, tables, lens)
+    q32, k32, v32 = q.float(), pool_k.float(), pool_v.float()
+
+    def dref(ls):
+        return paged_decode_attention_ref(q32, k32, v32, tables, ls)
+
+    longest = int(torch.argmax(lens))
+    wrong = {}
+    for name, (row, cut) in dict(
+            {"one_key_short": (longest, 1), "one_page_short": (longest, bs)},
+            **{k: (r, 1) for k, r in (short_rows or {}).items()}).items():
+        ls = lens.clone()
+        ls[row] -= cut
+        wrong[name] = dref(ls)
+    n_keys = int(lens.sum())
+    rec = {"phase": "kernel", "name": "paged_decode_attention",
+           "case": label, "dtype": "bfloat16",
+           "shape": {"S": S, "H": H, "KV": KV, "hd": hd, "bs": bs, "mb": mb,
+                     "keys": n_keys},
+           "lengths": lens.tolist(),
+           "splits": _decode_splits(torch, mb, bs, S, KV)}
+    _hold(torch, rec, out, dref(lens), TOL["bfloat16"], wrong)
+    if timed:
+        nbytes = (2 * 2 * q.numel() + 2 * n_keys * KV * hd * 2
+                  + tables.numel() * 4 + lens.numel() * 4)
+        rec.update(_times(torch, timer, "bfloat16", nbytes,
+                          4 * H * hd * n_keys,
+                          lambda: dops.paged_decode_attention_op(
+                              q, pool_k, pool_v, tables, lens),
+                          lambda: paged_decode_attention_ref(
+                              q, pool_k, pool_v, tables, lens),
+                          _sdpa_dense(torch, q, pool_k, pool_v, tables,
+                                      lens)))
+    return rec
 
 
 # flash attention and dense decode at the rollout engine's shapes: 16
@@ -510,6 +603,7 @@ def phase_dense_kernels(torch):
                 None if window else lambda: F.scaled_dot_product_attention(
                     qc, kc, vc, is_causal=True, enable_gqa=True),
                 iters=10, plain_iters=3))
+            rec["tflop_s"] = flops / (rec["ms"] * 1e-3) / 1e12
             if window is None:
                 results["flash_attention"] = rec
         emit(rec)

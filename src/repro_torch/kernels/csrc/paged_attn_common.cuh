@@ -1,8 +1,8 @@
-// Shared body of the two paged-attention kernels (decode and chunked
-// prefill) over one layer's paged K/V pool.
+// Body of the chunked paged prefill attention kernel over one layer's
+// paged K/V pool (csrc/paged_prefill_attn.cu).
 //
 // Layouts (all row-major, contiguous):
-//   q, out         [R, H, HD]              R query rows (slots or chunk rows)
+//   q, out         [R, H, HD]              R chunk rows
 //   pool_k, pool_v [n_blocks, bs, KV, HD]  one layer's pool
 //   tables         [S, mb] int32           -1 = unmapped (clamped to block 0)
 //
@@ -47,10 +47,9 @@ inline size_t smem_bytes(int bs) {
   return floats * sizeof(float) + 2 * kMaxQ * sizeof(int);
 }
 
-// DECODE: row r is segment r and attends keys 0..len[r]-1 (`meta` =
-// lengths [R]). Otherwise row r is segment seg[r] (`meta` = seg_ids [R],
-// -1 = padding) and attends keys 0..q_pos[r].
-template <typename T, int HD, bool DECODE>
+// Row r is segment seg[r] (`meta` = seg_ids [R], -1 = padding) and attends
+// keys 0..q_pos[r].
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                   const T* __restrict__ pool_v, const int* __restrict__ tables,
@@ -79,14 +78,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 
   for (int t = tid; t < nrows; t += kThreads) {
     const int r = r0 + t;
-    if (DECODE) {
-      seg_s[t] = r;
-      lim_s[t] = meta[r] - 1;
-    } else {
-      const int sg = meta[r];
-      seg_s[t] = sg;
-      lim_s[t] = sg >= 0 ? q_pos[r] : -1;
-    }
+    const int sg = meta[r];
+    seg_s[t] = sg;
+    lim_s[t] = sg >= 0 ? q_pos[r] : -1;
   }
   for (int idx = tid; idx < nq * HD; idx += kThreads) {
     const int qi = idx / HD, d = idx % HD;
@@ -197,13 +191,13 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T, int HD, bool DECODE>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    const void* tables, const void* meta, const void* q_pos,
                    void* out, int R, int H, int KV, int bs, int mb,
                    int rows_per_block, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(bs);
-  auto kern = paged_attn_kernel<T, HD, DECODE>;
+  auto kern = paged_attn_kernel<T, HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -221,18 +215,17 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
 
 // dtype: 0 = float32, 1 = bfloat16; HD in {64, 128}; H % KV == 0 and
 // rows_per_block * (H / KV) <= kMaxQ are the caller's to hold.
-template <bool DECODE>
-int dispatch(const void* q, const void* pool_k, const void* pool_v,
-             const void* tables, const void* meta, const void* q_pos,
-             void* out, int R, int H, int KV, int hd, int bs, int mb,
-             int rows_per_block, int dtype, void* stream) {
+inline int dispatch(const void* q, const void* pool_k, const void* pool_v,
+                    const void* tables, const void* meta, const void* q_pos,
+                    void* out, int R, int H, int KV, int hd, int bs, int mb,
+                    int rows_per_block, int dtype, void* stream) {
   if (R <= 0 || KV <= 0 || H % KV != 0 || bs <= 0 || mb <= 0 ||
       rows_per_block <= 0 || rows_per_block * (H / KV) > kMaxQ)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_LAUNCH(T, HD)                                                   \
-  return (int)launch<T, HD, DECODE>(q, pool_k, pool_v, tables, meta, q_pos,   \
-                                    out, R, H, KV, bs, mb, rows_per_block, st)
+  return (int)launch<T, HD>(q, pool_k, pool_v, tables, meta, q_pos, out, R,  \
+                            H, KV, bs, mb, rows_per_block, st)
   if (dtype == 0 && hd == 64) PAGED_LAUNCH(float, 64);
   if (dtype == 0 && hd == 128) PAGED_LAUNCH(float, 128);
   if (dtype == 1 && hd == 64) PAGED_LAUNCH(__nv_bfloat16, 64);

@@ -30,7 +30,6 @@ extern "C" int paged_prefill_attention(const void* q, const void* pool_k,
                                        int hd, int bs, int mb,
                                        int rows_per_block, int dtype,
                                        void* stream) {
-  return paged::dispatch<false>(q, pool_k, pool_v, tables, seg_ids, q_pos,
-                                out, C, H, KV, hd, bs, mb, rows_per_block,
-                                dtype, stream);
+  return paged::dispatch(q, pool_k, pool_v, tables, seg_ids, q_pos, out, C,
+                         H, KV, hd, bs, mb, rows_per_block, dtype, stream);
 }

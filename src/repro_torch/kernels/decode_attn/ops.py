@@ -77,13 +77,20 @@ def paged_decode_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
         raise ValueError(f"paged decode: {S} rows, tables "
                          f"{tuple(block_tables.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError("paged decode: q and pools must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if S == 0:
         return out
+    dev = q.device.index
+    n_sm = paged_kernel.sm_count(torch.cuda.current_device() if dev is None
+                                 else dev)
+    pps, n_splits = paged_kernel.split_plan(mb, bs, S, KV, n_sm)
     err = paged_kernel.fn()(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        S, H, KV, hd, bs, mb, code,
+        S, H, KV, hd, bs, mb, pps, n_splits, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA error {err}")

@@ -25,7 +25,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: Optional[int]) -> int:
     """Validate what the kernel takes; returns the dtype code. Any strides
     over (batch, head, position) are taken, hd must be contiguous, and bf16
-    rows must start on 16-byte boundaries (the kernel's vector loads)."""
+    rows must start on 16-byte boundaries, with no stride of 0 over a
+    dimension longer than 1 (the kernel's TMA tensor maps)."""
     tensors = (q, k, v)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash attention: all operands on one device")
@@ -52,6 +53,12 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for t in tensors):
         raise ValueError("flash attention: bf16 rows must be 16-byte "
                          "aligned (pointers and strides)")
+    if q.dtype == torch.bfloat16 and any(
+            n > 1 and st == 0 for t in tensors
+            for n, st in zip(t.shape[:3], t.stride()[:3])):
+        raise ValueError("flash attention: bf16 operands cannot broadcast "
+                         "(a stride of 0): the kernel's TMA maps need "
+                         "distinct rows")
     if window is not None and window < 1:
         raise ValueError(f"flash attention: window {window} < 1")
     return _DTYPE_CODES[q.dtype]

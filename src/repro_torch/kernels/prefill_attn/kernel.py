@@ -10,9 +10,12 @@ import ctypes
 import functools
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attn.paged_kernel import MAX_QUERY_VECTORS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+# query vectors (rows x query heads of one KV head) one thread block serves:
+# kMaxQ in csrc/paged_attn_common.cuh
+MAX_QUERY_VECTORS = 32
 
 
 def rows_per_block(group: int) -> int:

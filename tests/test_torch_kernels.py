@@ -46,6 +46,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.a3po_loss import ops as aops
 from repro_torch.kernels.a3po_loss.ref import a3po_loss_bwd_ref, a3po_loss_ref
 from repro_torch.kernels.decode_attn import ops as dops
+from repro_torch.kernels.decode_attn import paged_kernel
 from repro_torch.kernels.decode_attn.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -250,6 +251,35 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
         _build.build()
 
 
+@pytest.mark.parametrize("S,KV", [(1, 1), (8, 2), (8, 32), (3, 1),
+                                  (64, 8)])
+def test_decode_split_plan_covers_every_key_once(S, KV):
+    """The paged decode wrapper's split plan: for any table size, page
+    size and SM count, its splits are runs of whole pages that cover key
+    positions 0 .. mb*bs - 1 exactly once, none empty, and it reads only
+    host-known sizes (no lengths: the decode horizon must not wait for the
+    device)."""
+    import inspect
+    assert list(inspect.signature(paged_kernel.split_plan).parameters) == [
+        "mb", "bs", "S", "KV", "n_sm"]
+    rng = np.random.default_rng(S * 100 + KV)
+    cases = [(128, 16, 132), (1, 1, 132), (6, 4, 132), (40, 16, 8),
+             (128, 16, 1)] + [
+        (int(rng.integers(1, 300)), int(rng.integers(1, 65)),
+         int(rng.integers(1, 200))) for _ in range(40)]
+    for mb, bs, n_sm in cases:
+        pps, n = paged_kernel.split_plan(mb, bs, S, KV, n_sm)
+        assert 1 <= pps <= mb and 1 <= n <= paged_kernel.MAX_SPLITS
+        covered = np.zeros(mb * bs, np.int32)
+        for i in range(n):  # split i as the kernel walks it
+            start, end = i * pps * bs, min((i + 1) * pps * bs, mb * bs)
+            assert start < end and start % bs == 0
+            covered[start:end] += 1
+        assert (covered == 1).all(), (mb, bs, n_sm, pps, n)
+        # no split shorter than MIN_SPLIT_KEYS unless the table is
+        assert pps * bs >= min(paged_kernel.MIN_SPLIT_KEYS, mb * bs) or pps == mb
+
+
 def _chip_smoke():
     """The card-run script as a module (it imports only the standard
     library at module level)."""
@@ -407,6 +437,8 @@ def test_dense_kernel_input_checks():
          .transpose(1, 2), k, k, None),                # unaligned bf16 rows
         (q, k, k, 0),                                  # window < 1
         (q, k[:, :, :20], k[:, :, :20], None),          # S mismatch
+        (q, kv[:1].expand(2, -1, -1, -1).transpose(1, 2),
+         kv[:1].expand(2, -1, -1, -1).transpose(1, 2), None),  # stride 0
     ]
     for args in bad_flash:
         with pytest.raises(ValueError):
@@ -672,6 +704,32 @@ def test_cuda_kernels_vs_plain(cuda_device, dtype, rtol, atol, H, KV, hd,
     assert bool((out[ts < 0] == 0).all())
     assert (dops.LAUNCHES - d0, pops.LAUNCHES - p0) == (1, 1)
 
+    # decode over a 128-page table (many key splits): lengths on split and
+    # page boundaries and one past them, a full row, and a row of length 0
+    # (which gives 0 on the card); one launch
+    S, mb = 8, 128
+    pk_, pv_, tables, _ = _paged_pool(19, S, KV, S * mb, bs, mb, hd)
+    pps, n_splits = paged_kernel.split_plan(mb, bs, S, KV, paged_kernel.sm_count(
+        cuda_device.index or 0))
+    sk = pps * bs
+    lens = np.minimum([mb * bs, sk, sk + 1, sk - 1, bs, bs + 1, 1, 0],
+                      mb * bs).astype(np.int32)
+    for s_ in range(S):
+        tables[s_, -(-int(lens[s_]) // bs):] = -1
+    q = np.random.default_rng(20).standard_normal((S, H, hd)).astype(
+        np.float32)
+    tq, tk, tv = (t.to(cuda_device, dtype) for t in _t(q, pk_, pv_))
+    tt, tl = (t.to(cuda_device) for t in _t(tables, lens))
+    d0 = dops.LAUNCHES
+    out = dops.paged_decode_attention_op(tq, tk, tv, tt, tl)
+    assert dops.LAUNCHES - d0 == 1
+    ref = paged_decode_attention_ref(tq.float(), tk.float(), tv.float(), tt,
+                                     tl)
+    live = tl > 0
+    torch.testing.assert_close(out[live].float(), ref[live], rtol=rtol,
+                               atol=atol)
+    assert bool((out[~live] == 0).all())
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [2300, 1001])
@@ -756,6 +814,7 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
     (2, 12, 2, 256, 128, 64, "bhsd"),     # window across key tiles
     (3, 2, 1, 37, 64, None, "bhsd"),      # toy-2m heads, S < one key tile
     (1, 16, 2, 130, 64, None, "bshd"),    # group of 8
+    (2, 12, 2, 1000, 128, 16, "bshd"),    # window smaller than a tile
 ])
 def test_cuda_flash_vs_plain(cuda_device, dtype, rtol, atol, B, H, KV, S,
                              hd, window, layout):
