@@ -20,9 +20,14 @@ Phases, each printing one JSON line:
              beside the least time the card could take. Paged decode also
              runs at the paged engine's own lengths (its first 8 prompts +
              16), at zamba2's shared-attention heads (H 32, KV 32, hd 64),
-             both timed, and at lengths on split and page boundaries with a
-             wrong reference one key short past a split boundary; each
-             decode record gives the wrapper's split plan.
+             at groups of 12 and 48 query heads per KV head, all timed, and
+             at lengths on split and page boundaries with a wrong reference
+             one key short past a split boundary; paged prefill also runs
+             at the last chunk of a 1024-token prompt, the engine's first
+             packed chunk, zamba2's heads and groups of 12 and 48, all
+             timed, and at rows on split and page boundaries with the same
+             extra wrong reference; each record gives the wrapper's split
+             plan.
 4. engine  — serves 16 seeded requests through 8 slots of the port's
              ContinuousBatchingEngine with Qwen2.5-1.5B at full width and
              depth (28 layers, bf16, seeded random weights, layer weights
@@ -37,7 +42,8 @@ Phases, each printing one JSON line:
              T = 2300 and 1001, the clip active on both sides, the iw cap
              active, the mask partial; 1e-6 relative, clip_tok exact) and the
              token logprob + entropy (forward at the training step's shapes,
-             T 2300, d 1536, V 151,936, bf16, and at V 1000 in float32,
+             T 2300, d 1536, V 151,936, bf16, through the TMA + wgmma
+             kernel, and at V 1000 in float32 through the first design,
              against the plain version in float32 on the same values, with a
              tolerance a reference one vocab tile short fails; backward dh,
              dw at T 512 against autograd of the plain version), each timed
@@ -51,7 +57,8 @@ Phases, each printing one JSON line:
              the staleness-dependent invariants (alpha = 0: ratio 1, nothing
              clipped, iw near 1, i.e. the trainer's logp agrees with the
              engine's behaviour logp; alpha = 1: iw exactly 1), one host
-             transfer per step and both training kernels launched; then one
+             transfer per step, both training kernels launched and every
+             logprob forward through the wgmma kernel; then one
              `recompute` step from the state before step 2, for the A-3PO
              against recompute step time.
 7. training_float32 — the same step in float32 at full width and 4 layers,
@@ -66,7 +73,8 @@ Phases, each printing one JSON line:
              within 1e-4 + 1e-2 |ref|, which a wrong reference must fail
              (flash: the diagonal masked; decode: lengths - 1), timed beside
              its bound, its plain version and SDPA as a yardstick (flash
-             also in TFLOP/s).
+             also in TFLOP/s); both again at groups of 12 and 48 query heads
+             over one KV head (flash at B 4), timed.
 9. rollout — the dense RolloutEngine (prefill through the flash kernel,
              decode through the dense decode kernel) at Qwen2.5-1.5B, full
              width and depth, bf16, layer weights x8: PR 11's 16 requests
@@ -111,7 +119,8 @@ Phases, each printing one JSON line:
              same way; the traced prefill / decode split, the device idle
              share of a profiled run and peak memory.
 13. the kernels line (all ten kernels, each with the shape its ms and
-             bound belong to), then the contract line (last):
+             bound belong to; the logprob forward's also with its wgmma
+             launches on the main path), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -446,6 +455,8 @@ def phase_kernels(torch):
         emit(rec)
     for case in _decode_cases(torch):
         emit(_decode_case(torch, timer, g, **case))
+    for case in _prefill_cases(torch):
+        emit(_prefill_case(torch, timer, g, **case))
     return results
 
 
@@ -475,6 +486,8 @@ def _decode_cases(torch):
              lengths=[2048, sk + 1, sk, sk - 1, 2 * sk + 1, 16, 17, 1],
              timed=False,
              short_rows={"one_key_short_past_a_split": 1}),
+        dict(label="group_12", H=12, KV=1, hd=128, lengths=None, timed=True),
+        dict(label="group_48", H=48, KV=1, hd=128, lengths=None, timed=True),
     ]
 
 
@@ -526,6 +539,138 @@ def _decode_case(torch, timer, g, *, label, H, KV, hd, lengths, timed,
                           _sdpa_dense(torch, q, pool_k, pool_v, tables,
                                       lens)))
     return rec
+
+
+def _prefill_cases(torch, n_sm=None):
+    """Paged prefill beyond the timed shape (8 slots, bs 16, mb 128): the
+    last chunk of a 1024-token prompt (one segment of 256 rows at 768 ..
+    1023), the paged engine's first packed chunk (its first 8 prompts,
+    shortest remaining first, from position 0), zamba2's shared attention
+    heads, groups of 12 and 48 (command-r-plus's and granite-34b's), and
+    rows ending on split and page boundaries with a wrong reference one
+    key short at the row one key past a split boundary. Runs are (slot,
+    first position, rows); the timed shape's runs are 8 x 31 rows at the
+    ends of ragged lengths up to 2048. ``n_sm``: the SM count the split
+    boundaries are placed for (the card's by default)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    lens = [len(r) for r in _requests(get_config("qwen2.5-1.5b"))[:8]]
+    first, used = [], 0
+    for slot in sorted(range(8), key=lambda s: (lens[s], s)):
+        take = min(lens[slot], 256 - used)
+        if take <= 0:
+            break
+        first.append((slot, 0, take))
+        used += take
+    rng = np.random.default_rng(5)
+    ragged = [(s, int(e) - 31, 31) for s, e in
+              enumerate(rng.integers(32, 2049, size=8))]
+    if n_sm is None:
+        n_sm = _prefill_splits(torch, 256, 12, 2, 128, 16)["n_sm"]
+    pps, _ = pk.split_plan(256, 6, 2, 128, 16, n_sm)
+    sk = pps * 16
+    bounds = [(0, 2048 - 31, 31), (1, sk - 30, 31), (2, sk - 31, 31),
+              (3, sk - 32, 31), (4, 2 * sk - 30, 31), (5, 0, 16), (6, 0, 17),
+              (7, 0, 1)]
+    return [
+        dict(label="last_chunk_of_1024", H=12, KV=2, hd=128,
+             runs=[(0, 768, 256)], pad=0, timed=True),
+        dict(label="engine_first_chunk", H=12, KV=2, hd=128, runs=first,
+             pad=0, timed=True),
+        dict(label="zamba2_heads", H=32, KV=32, hd=64, runs=ragged, pad=8,
+             timed=True),
+        dict(label="group_12", H=12, KV=1, hd=128, runs=ragged, pad=8,
+             timed=True),
+        dict(label="group_48", H=48, KV=1, hd=128, runs=ragged, pad=8,
+             timed=True),
+        # row 31 + 30 is slot 1's last, at position sk: one key past split
+        # 0 (256 rows, so the wrapper's plan is the one sk was taken from)
+        dict(label="split_boundaries", H=12, KV=2, hd=128, runs=bounds,
+             pad=256 - 5 * 31 - 34, timed=False,
+             short_rows={"one_key_short_past_a_split": 61}),
+    ]
+
+
+def _prefill_case(torch, timer, g, *, label, H, KV, hd, runs, pad, timed,
+                  short_rows=None):
+    """Paged prefill in bf16 over a packed chunk of ``runs`` (slot, first
+    position, rows) and ``pad`` padding rows, 8 slots, bs 16, mb 128,
+    against its plain version in float32, with wrong references one key
+    and one page short at the longest row (and one key short at each row of
+    ``short_rows``) that must fail; padding rows must be 0; timed beside
+    its bound, its plain version and SDPA over gathered K/V."""
+    from repro_torch.kernels.prefill_attn import ops as pops
+    from repro_torch.kernels.prefill_attn.ref import (
+        paged_prefill_attention_ref,
+    )
+    S, bs, mb, n_blocks = 8, 16, 128, 4096
+    need = [1] * S
+    seg, pos = [], []
+    for slot, start, n in runs:
+        seg += [slot] * n
+        pos += list(range(start, start + n))
+        need[slot] = max(need[slot], start + n)
+    seg += [-1] * pad
+    pos += [0] * pad
+    pool_k, pool_v, tables, _ = _pool(
+        torch, g, n_blocks=n_blocks, bs=bs, KV=KV, hd=hd, S=S, mb=mb,
+        max_len=2048, dtype=torch.bfloat16, lengths=need)
+    seg = torch.tensor(seg, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    C = seg.shape[0]
+    q = torch.randn(C, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    out = pops.paged_prefill_attention_op(q, pool_k, pool_v, tables, seg,
+                                          pos)
+    q32, k32, v32 = q.float(), pool_k.float(), pool_v.float()
+
+    def pref(p):
+        return paged_prefill_attention_ref(q32, k32, v32, tables, seg, p)
+
+    longest = int(torch.argmax(torch.where(seg < 0, -1, pos)))
+    wrong = {}
+    for name, (row, cut) in dict(
+            {"one_key_short": (longest, 1), "one_page_short": (longest, bs)},
+            **{k: (r, 1) for k, r in (short_rows or {}).items()}).items():
+        p = pos.clone()
+        p[row] -= cut
+        wrong[name] = pref(p)
+    pad_rows = seg < 0
+    row_keys = torch.where(pad_rows, 0, pos + 1)
+    seg_keys = sum(int(row_keys[seg == s].max())
+                   for s in range(S) if bool((seg == s).any()))
+    rec = {"phase": "kernel", "name": "paged_prefill_attention",
+           "case": label, "dtype": "bfloat16",
+           "shape": {"C": C, "H": H, "KV": KV, "hd": hd, "bs": bs, "mb": mb,
+                     "pad_rows": pad, "row_keys": int(row_keys.sum())},
+           "runs": runs, "splits": _prefill_splits(torch, C, H, KV, mb, bs)}
+    _hold(torch, rec, out, pref(pos), TOL["bfloat16"], wrong)
+    if bool(out[pad_rows].any()):
+        raise AssertionError(f"paged_prefill_attention: padding rows not "
+                             f"zero: {rec}")
+    if timed:
+        nbytes = (2 * 2 * q.numel() + 2 * seg_keys * KV * hd * 2
+                  + tables.numel() * 4 + 2 * C * 4)
+        row_tables = tables[seg.clamp_min(0).long()]
+        rec.update(_times(torch, timer, "bfloat16", nbytes,
+                          4 * H * hd * int(row_keys.sum()),
+                          lambda: pops.paged_prefill_attention_op(
+                              q, pool_k, pool_v, tables, seg, pos),
+                          lambda: paged_prefill_attention_ref(
+                              q, pool_k, pool_v, tables, seg, pos),
+                          _sdpa_dense(torch, q, pool_k, pool_v, row_tables,
+                                      row_keys), plain_iters=5))
+    return rec
+
+
+def _prefill_splits(torch, C, H, KV, mb, bs):
+    """The paged prefill wrapper's split plan for these sizes (bf16)."""
+    from repro_torch.kernels.decode_attn import paged_kernel
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    n_sm = paged_kernel.sm_count(torch.cuda.current_device())
+    pps, n = pk.split_plan(C, H // KV, KV, mb, bs, n_sm)
+    return {"pages_per_split": pps, "n_splits": n, "split_keys": pps * bs,
+            "n_sm": n_sm}
 
 
 # flash attention and dense decode at the rollout engine's shapes: 16
@@ -639,7 +784,75 @@ def phase_dense_kernels(torch):
         iters=50))
     results["decode_attention"] = rec
     emit(rec)
+    for G in (12, 48):
+        for rec in _dense_group_cases(torch, timer, g, G):
+            emit(rec)
     return results
+
+
+def _dense_group_cases(torch, timer, g, G):
+    """Flash attention (B 4, S 1024) and dense decode (B 16, L 1056) at a
+    group of G query heads over one KV head (command-r-plus's 12,
+    granite-34b's 48), hd 128, bf16, against their plain versions with the
+    wrong references of the main shapes, timed beside bound, plain version
+    and SDPA."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    F = torch.nn.functional
+    tol = TOL["bfloat16"]
+    B, S, hd, L = 4, FLASH_SHAPE["S"], FLASH_SHAPE["hd"], DECODE_L
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for n in (G, 1, 1))
+    out = fops.flash_attention(q, k, v)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    rec = {"phase": "kernel", "name": "flash_attention", "case": f"group_{G}",
+           "dtype": "bfloat16",
+           "shape": {"B": B, "S": S, "H": G, "KV": 1, "hd": hd}}
+    _hold(torch, rec, out, flash_attention_ref(q32, k32, v32), tol,
+          {"diagonal_masked": _masked_diagonal_ref(torch, q32, k32, v32)})
+    del q32, k32, v32
+    flops = 4 * B * G * hd * _flash_pairs(S, None)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    rec.update(_times(
+        torch, timer, "bfloat16", 2 * (2 * q.numel() + k.numel() + v.numel()),
+        flops, lambda: fops.flash_attention(q, k, v),
+        lambda: flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                               enable_gqa=True),
+        iters=10, plain_iters=3))
+    rec["tflop_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+    del q, k, v, qc, kc, vc, out
+    B = FLASH_SHAPE["B"]
+    kc, vc = (torch.randn(B, L, 1, hd, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.randint(1, L + 1, (B,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[0], lengths[1] = L, 1
+    q = torch.randn(B, G, hd, generator=g, device="cuda").to(torch.bfloat16)
+    out = dops.decode_attention_op(q, kc, vc, lengths)
+    q32, k32, v32 = q.float(), kc.float(), vc.float()
+    n_keys = int(lengths.sum())
+    dec = {"phase": "kernel", "name": "decode_attention",
+           "case": f"group_{G}", "dtype": "bfloat16",
+           "shape": {"B": B, "H": G, "KV": 1, "hd": hd, "L": L,
+                     "keys": n_keys}}
+    _hold(torch, dec, out, decode_attention_ref(q32, k32, v32, lengths), tol,
+          {"lengths_minus_one": decode_attention_ref(q32, k32, v32,
+                                                     lengths - 1)})
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    dec.update(_times(
+        torch, timer, "bfloat16",
+        2 * (2 * q.numel() + 2 * n_keys * hd) + 4 * B, 4 * G * hd * n_keys,
+        lambda: dops.decode_attention_op(q, kc, vc, lengths),
+        lambda: decode_attention_ref(q, kc, vc, lengths),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+        iters=50))
+    return rec, dec
 
 
 def _hold(torch, rec, out, ref, tol, wrong_refs):
@@ -955,6 +1168,7 @@ def _all_counts():
             "a3po_loss": aops.LAUNCHES["forward"],
             "a3po_loss_bwd": aops.LAUNCHES["backward"],
             "token_logprob_entropy": lops.LAUNCHES["forward"],
+            "token_logprob_entropy_wgmma": lops.LAUNCHES["forward_wgmma"],
             "token_logprob_entropy_bwd": lops.LAUNCHES["backward"],
             "flash_attention": fops.LAUNCHES,
             "decode_attention": dops.DENSE_LAUNCHES,
@@ -1078,7 +1292,9 @@ def phase_training_kernels(torch):
             lp_w, en_w = token_logprob_entropy_ref(h32, w32[:, :keep],
                                                    t.clamp(max=keep - 1))
         rec = {"phase": "kernel", "name": "token_logprob_entropy",
-               "dtype": dname, "shape": {"T": T, "d": d, "V": Vc}}
+               "dtype": dname, "shape": {"T": T, "d": d, "V": Vc},
+               "forward_kernel": "wgmma" if lops.takes_wgmma(h, w)
+               else "wmma/fma"}
         sub = {}
         for label, out, ref, wrong in (("logp", lp, lp_r, lp_w),
                                        ("entropy", en, en_r, en_w)):
@@ -1281,6 +1497,11 @@ def phase_training(torch):
     if min(launches[k] for k in train_kernels) <= 0:
         raise AssertionError(f"a training kernel was not launched: "
                              f"{launches}")
+    # the bf16 step's logprob forwards all took the TMA + wgmma kernel
+    if launches["token_logprob_entropy_wgmma"] \
+            != launches["token_logprob_entropy"]:
+        raise AssertionError(f"a bf16 logprob forward missed the wgmma "
+                             f"kernel: {launches}")
     del state, new
 
     # step 2 again from copies of the state before it, a3po and recompute
@@ -2330,6 +2551,9 @@ def main() -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
                      "shape": k.get("shape")})
+        if name == "token_logprob_entropy":
+            line[-1]["wgmma_launches"] = launches[
+                "token_logprob_entropy_wgmma"]
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

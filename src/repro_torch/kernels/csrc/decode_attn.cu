@@ -15,9 +15,11 @@
 //   against about 4 flops per byte pair, far below the card's ~295
 //   flop/byte balance point: the floor is the K/V bytes over HBM bandwidth.
 //
-// What the design does about it: one block per (sequence, KV head) serves
-//   the G query heads of that KV head, so each key and value row is read
-//   from device memory once per group, not once per head. The block reads
+// What the design does about it: one block per (sequence, KV head, chunk
+//   of at most 8 of its query heads) serves the chunk's heads, so each key
+//   and value row is read from device memory once per chunk, not once per
+//   head, and any group size G = H / KV is taken (a group of 6 is one
+//   chunk, 48 is six). The block reads
 //   only the first lengths[b] keys (the TPU kernel streams the whole cache
 //   and masks). Its 8 warps take interleaved chunks of 32 keys: for scores
 //   a lane owns one key and reads its whole row in 16-byte vectors against
@@ -38,7 +40,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
-constexpr int MAX_G = 8;
+constexpr int MAX_G = 8;  // query heads per block (a chunk of the group)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -95,8 +97,11 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
             T* __restrict__ out, int H, int KV, int L, float scale) {
   constexpr int DPL = HD / 32;       // value dimensions per lane
   constexpr int KCH = sizeof(T) == 2 ? 32 : 16;  // key dims per load step
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int G = H / KV;
+  const int b = blockIdx.x;
+  const int Gq = H / KV, n_hc = (Gq + MAX_G - 1) / MAX_G;
+  const int kvh = blockIdx.y / n_hc, g0 = (blockIdx.y % n_hc) * MAX_G;
+  const int G = min(MAX_G, Gq - g0);  // the block's heads: h0 .. h0 + G - 1
+  const int h0 = kvh * Gq + g0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = min(max(lengths[b], 0), L);
 
@@ -107,7 +112,7 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (int i = tid; i < G * HD; i += NT) {
     const int g = i / HD, d = i % HD;
-    q_s[g][d] = to_f(q[((size_t)b * H + kvh * G + g) * HD + d]);
+    q_s[g][d] = to_f(q[((size_t)b * H + h0 + g) * HD + d]);
   }
   __syncthreads();
 
@@ -227,7 +232,7 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
         }
       }
     }
-    out[((size_t)b * H + kvh * G + g) * HD + d] =
+    out[((size_t)b * H + h0 + g) * HD + d] =
         from_f<T>(num / fmaxf(den, 1e-30f));
   }
 }
@@ -236,7 +241,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* lengths, void* out, int B, int H, int KV,
                    int L, cudaStream_t stream) {
-  dim3 grid(B, KV);
+  dim3 grid(B, KV * ((H / KV + MAX_G - 1) / MAX_G));
   decode_attn<T, HD><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(lengths),
@@ -246,13 +251,13 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; H % KV == 0 and
-// H / KV <= 8; every operand contiguous.
+// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; H % KV == 0 (any
+// group size); every operand contiguous.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths,
                                 void* out, int B, int H, int KV, int L,
                                 int hd, int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAX_G)
+  if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DECODE_LAUNCH(T, HD) \

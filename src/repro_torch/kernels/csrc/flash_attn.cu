@@ -48,8 +48,9 @@
 //     query position, and each consumer skips the tiles wholly masked for
 //     its own rows.
 //   Float32 operands take a simple kernel (nothing times it): one block per
-//   (16 positions, KV head, batch row) serving the whole GQA group, tiles in
-//   shared memory, float32 FMAs.
+//   (16 positions, chunk of at most 8 query heads of one KV head, batch
+//   row), so any group size G = H / KV is taken; tiles in shared memory,
+//   float32 FMAs.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +60,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int MAX_G = 8;  // query heads per KV head
 constexpr float NEG = -1e30f;
 
 struct Args {
@@ -94,9 +94,10 @@ constexpr int BQ = 16;   // query positions per block
 constexpr int BK = 32;   // keys per tile
 constexpr int NT = 256;  // threads per block
 constexpr int NW = NT / 32;
+constexpr int GC = 8;    // query heads per block: a chunk of the group
 
-// shared-memory tiles of one block, M = 16 * G query rows (row m is head
-// m / 16 of the group at position q0 + m % 16)
+// shared-memory tiles of one block, M = 16 * ng query rows (row m is head
+// m / 16 of the block's chunk at position q0 + m % 16)
 template <int HD>
 struct Tiles {
   static constexpr int LQ = HD + 1;  // Q and K rows: conflict-free columns
@@ -128,15 +129,17 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   using TL = Tiles<HD>;
-  const int G = a.H / a.KV;
-  const int M = BQ * G;
+  const int G = a.H / a.KV, n_hc = (G + GC - 1) / GC;
+  const int kvh = blockIdx.y / n_hc, g0 = (blockIdx.y % n_hc) * GC;
+  const int ng = min(GC, G - g0), h0 = kvh * G + g0;  // the block's heads
+  const int M = BQ * ng;
   const int q0 = blockIdx.x * BQ;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int S = a.S;
 
   extern __shared__ float smem[];
-  const TL L(M);
+  const TL L(BQ * GC);
   float* Qs = smem + L.q;
   float* Ks = smem + L.k;
   float* Vs = smem + L.v;
@@ -149,9 +152,9 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   const float* k = static_cast<const float*>(a.k) + b * a.kb + kvh * a.kh;
   const float* v = static_cast<const float*>(a.v) + b * a.vb + kvh * a.vh;
   const int q_valid = min(BQ, S - q0);
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < ng; ++g)
     load_rows<HD>(Qs + g * BQ * TL::LQ, TL::LQ,
-                  q + b * a.qb + (kvh * G + g) * a.qh + q0 * a.qs, a.qs, BQ,
+                  q + b * a.qb + (h0 + g) * a.qh + q0 * a.qs, a.qs, BQ,
                   q_valid);
   for (int i = tid; i < M * HD; i += NT) Os[i] = 0.0f;
   for (int i = tid; i < M; i += NT) {
@@ -218,21 +221,22 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   for (int i = tid; i < M * HD; i += NT) {
     const int m = i / HD, d = i % HD, g = m / BQ, pos = q0 + m % BQ;
     if (pos < S)
-      out[b * a.ob + (kvh * G + g) * a.oh + pos * a.os + d] =
+      out[b * a.ob + (h0 + g) * a.oh + pos * a.os + d] =
           Os[i] / fmaxf(l_s[m], 1e-30f);
   }
 }
 
 template <int HD>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const Tiles<HD> L(BQ * (a.H / a.KV));
+  const Tiles<HD> L(BQ * GC);
   auto kern = flash_fwd<HD>;
   if (L.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((a.S + BQ - 1) / BQ, a.KV, B);
+  const int n_hc = (a.H / a.KV + GC - 1) / GC;
+  dim3 grid((a.S + BQ - 1) / BQ, a.KV * n_hc, B);
   kern<<<grid, NT, L.total, stream>>>(a);
   return cudaGetLastError();
 }
@@ -861,8 +865,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; H % KV == 0 and
-// H / KV <= 8. bf16 rows must be 16-byte aligned (strides multiples of 8,
+// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; H % KV == 0 (any
+// group size). bf16 rows must be 16-byte aligned (strides multiples of 8,
 // pointers 16-byte aligned); the caller checks.
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* out, long long qb,
@@ -870,7 +874,7 @@ extern "C" int flash_attention_forward(
     long long vb, long long vh, long long vs, long long ob, long long oh,
     long long os, int B, int S, int H, int KV, int hd, int window, int dtype,
     void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAX_G)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   Args a{q,  k,  v,  out, qb, qh, qs, kb, kh, ks, vb,     vh,
          vs, ob, oh, os,  S,  H,  KV, window, 1.0f / sqrtf((float)hd)};

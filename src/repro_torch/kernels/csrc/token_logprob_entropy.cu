@@ -16,22 +16,41 @@
 // What bounds it: operations. A pass computes 2*T*d*V flops of logits
 //   (1.07 TFLOP at T = 2300, d = 1536, V = 151,936, about 1.09 ms at the
 //   card's 989 TFLOP/s in bf16) against ~0.5 GB of operands, far above the
-//   card's ~295 flop/byte balance point.
+//   card's ~295 flop/byte balance point. The logits never reach device
+//   memory in the forward: a block folds each logit tile into four online
+//   per-row statistics (max, sum of exp, sum of exp*logit, target logit),
+//   and a second small pass merges the blocks' vocab ranges.
 //
-// What the design does about it: the logits never reach device memory in
-//   the forward. A block owns 64 tokens and a contiguous range of vocab
-//   tiles (split-V, so that a few thousand tokens still fill 132 SMs),
-//   computes each 64 x 128 logit tile with bf16 tensor-core MMA (wmma,
-//   float32 accumulation; products of bf16 values are exact in float32, so
-//   this is the reference's float32 upcast up to summation order) or, for
-//   float32 operands, float32 FMAs, and folds the tile into four online
-//   per-row statistics (max, sum of exp, sum of exp*logit, target logit).
-//   A second small pass merges the ranges. The backward recomputes each
-//   tile with the same code and writes the float32 cotangent tile. Masked
-//   edges: tokens past T load zeros and are not written; vocab columns past
-//   V are excluded; d need not be a multiple of the tile depth. Not done
-//   yet (later work): wgmma and TMA, a multi-stage cp.async pipeline,
-//   keeping the token tile resident across vocab tiles.
+// What the design does about it (the forward of bf16 operands whose rows
+//   are 16-byte aligned, namespace wg): the tensor cores at their full rate
+//   through wgmma, fed by TMA.
+//   - One block of three warpgroups per (128-token tile, vocab range); the
+//     grid runs the token tiles of a range side by side, so that w streams
+//     from device memory about once and is reread from L2 (h, 7 MB at the
+//     step's shape, stays there). The wrapper's plan picks the ranges from
+//     host-known sizes to fill the 132 SMs in whole waves.
+//   - The producer warpgroup gives up its registers (setmaxnreg); one of its
+//     threads keeps a ring of 4 stages of (h: 128 tokens x 64 deep, w: 64
+//     deep x 128 vocab) in flight by TMA, 128-byte swizzled, with a full
+//     and an empty mbarrier per stage. w is read through either layout
+//     (the tied head's k-contiguous view, or an untied [d, V] head,
+//     V-contiguous), as wgmma's K-major or MN-major B operand; tensor maps
+//     zero-fill the edges (tokens past T, vocab past V, depth past d).
+//   - Two consumer warpgroups own 64 tokens each and run wgmma m64n128k16
+//     (float32 accumulators in registers), one k-step's group in flight
+//     while the next stage is awaited. Products of bf16 values are exact
+//     in float32, so this is the reference's float32 upcast up to
+//     summation order.
+//   - Epilogue in registers: each thread holds 2 rows x 32 columns of the
+//     tile; the row maximum by quad shuffles, then one FFMA and one ex2 a
+//     logit for the sums, no shared-memory logit tile.
+// Other operands (float32, or bf16 rows not 16-byte aligned) and the
+//   backward take the first design (namespace-level kernels below): a block
+//   owns 64 tokens and a contiguous range of 128-entry vocab tiles,
+//   computes each tile with wmma 16x16x16 (bf16) or float32 FMAs through a
+//   shared-memory logit tile; the backward recomputes each tile and writes
+//   the float32 cotangent tile. Masked edges as above.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -367,6 +386,389 @@ struct Variant {
   static constexpr bool wk1 = WK1, vec = VEC;
 };
 
+// ------------------------------------------- bf16 forward: TMA + wgmma
+namespace wg {
+
+constexpr int BM = 128;      // tokens per block (two consumers of 64)
+constexpr int BN = 128;      // vocab entries per tile
+constexpr int BK = 64;       // depth per stage: one 128-byte swizzle row
+constexpr int kStages = 4;   // ring depth
+constexpr int NT = 384;      // producer + two consumer warpgroups
+constexpr int kBox = 64 * 64 * 2;  // bytes of a [64 x 64] bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dynamic shared memory, every tile 1024-byte aligned (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes). A stage holds h (two boxes of [64
+// tokens x 64 deep], one per consumer) and w: one box of [128 vocab x 64
+// deep] (k-contiguous w) or two of [64 deep x 64 vocab] (V-contiguous w).
+struct Smem {
+  static constexpr int a = 0;
+  static constexpr int b = a + kStages * 2 * kBox;
+  static constexpr int bar = b + kStages * 2 * kBox;  // full, empty
+  static constexpr int total = bar + 8 * 2 * kStages;
+  static constexpr int alloc = total + 1024;  // room to align the base
+};
+
+struct Params {
+  const int* targets;
+  float* part;  // [4][splits][rows]
+  int rows, V, d, n_tiles, tiles_per_split;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a 2-D map at (inner coordinate c0, outer c1)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+// K-major operand (h, k-contiguous w): 16 deep at k-step kk of rows of 128
+// bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + kk * 32, 16, 1024);
+}
+// MN-major operand (V-contiguous w): 16 deep rows at k-step kk of a [64
+// deep x 128 vocab] tile whose two 64-column boxes lie kBox apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from touching accumulators across an async wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n128k16, A and B from shared memory; B K-major (MN = 0)
+// or MN-major (MN = 1); accumulate = 0 overwrites d
+template <int MN>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(MN));
+}
+
+// the k-steps of one vocab tile into acc, each stage handed back to the
+// producer as soon as the products that read it are complete
+template <int MN>
+__device__ __forceinline__ void tile_products(float (&acc)[64], int& kv,
+                                              int KT, int c, int lane,
+                                              uint32_t sm_a, uint32_t sm_b,
+                                              uint32_t full, uint32_t empty) {
+  for (int ks = 0; ks < KT; ++ks, ++kv) {
+    const int st = kv % kStages;
+    mbar_wait(full + 8 * st, (kv / kStages) & 1);
+    const uint32_t sa = sm_a + st * 2 * kBox + c * kBox;
+    const uint32_t sb = sm_b + st * 2 * kBox;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_n128<MN>(acc, desc_k(sa, kk),
+                     MN ? desc_mn(sb, kk) : desc_k(sb, kk), ks > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k-step is done: its stage goes back
+    __syncwarp();
+    if (ks > 0 && lane == 0) mbar_arrive(empty + 8 * ((kv - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty + 8 * ((kv - 1) % kStages));
+}
+
+// grid (token tile, vocab range); MN: w V-contiguous
+template <int MN>
+__global__ void __launch_bounds__(NT, 1)
+forward_partial(const __grid_constant__ CUtensorMap th,
+                const __grid_constant__ CUtensorMap tw, const Params a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t sm_a = s_base + Smem::a, sm_b = s_base + Smem::b;
+  const uint32_t full = s_base + Smem::bar, empty = full + 8 * kStages;
+  const int m0 = blockIdx.x * BM, split = blockIdx.y;
+  const int t0 = split * a.tiles_per_split;
+  const int t1 = min(t0 + a.tiles_per_split, a.n_tiles);
+  const int KT = (a.d + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, broadcast so that the compiler sees it uniform:
+  // otherwise every branch on it is divergent and ptxas serialises wgmma
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {  // ------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int kv = 0;  // stages filled so far: stage kv % kStages
+      for (int tile = t0; tile < t1; ++tile)
+        for (int ks = 0; ks < KT; ++ks, ++kv) {
+          const int st = kv % kStages;
+          if (kv >= kStages)
+            mbar_wait(empty + 8 * st, ((kv / kStages) - 1) & 1);
+          const uint32_t bar = full + 8 * st;
+          const uint32_t sa = sm_a + st * 2 * kBox, sb = sm_b + st * 2 * kBox;
+          mbar_expect_tx(bar, 4 * kBox);
+          tma_load(sa, &th, bar, ks * BK, m0);
+          tma_load(sa + kBox, &th, bar, ks * BK, m0 + 64);
+          if (MN) {
+            tma_load(sb, &tw, bar, tile * BN, ks * BK);
+            tma_load(sb + kBox, &tw, bar, tile * BN + 64, ks * BK);
+          } else {
+            tma_load(sb, &tw, bar, ks * BK, tile * BN);
+          }
+        }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg, warp = tid / 32, lane = tid % 32;
+  // accumulator rows of wgmma m64nN: row_a (registers j with j & 2 == 0)
+  // and row_b = row_a + 8; columns 8 (j / 4) + 2 (lane % 4) + (j & 1)
+  const int row_a = m0 + 64 * c + 16 * warp + lane / 4, row_b = row_a + 8;
+  const int tgt_a = row_a < a.rows ? a.targets[row_a] : -1;
+  const int tgt_b = row_b < a.rows ? a.targets[row_b] : -1;
+  const int col0 = 2 * (lane % 4);
+  // running statistics of rows a and b: the maximum, and the sums of exp
+  // and of exp * logit relative to it (partial over this thread's
+  // columns), the target logit (held by one thread of the row)
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float s_a = 0.f, s_b = 0.f, lt_a = 0.f, lt_b = 0.f;
+
+  int kv = 0;
+  for (int tile = t0; tile < t1; ++tile) {
+    float acc[64];
+    tile_products<MN>(acc, kv, KT, c, lane, sm_a, sm_b, full, empty);
+
+    // ---- epilogue: fold the tile into the rows' statistics
+    const int n0 = tile * BN;
+    if (n0 + BN > a.V) {  // the ragged last tile: columns past V are out
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if (n0 + 8 * (j / 4) + col0 + (j & 1) >= a.V) acc[j] = -INFINITY;
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 64; j += 4) {
+      mx_a = fmaxf(mx_a, fmaxf(acc[j], acc[j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(acc[j + 2], acc[j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);  // finite
+    const float corr_a = exp2f((m_a - mn_a) * kLog2e);  // 0 on the first
+    const float corr_b = exp2f((m_b - mn_b) * kLog2e);
+    m_a = mn_a;
+    m_b = mn_b;
+    const float na = -mn_a * kLog2e, nb = -mn_b * kLog2e;
+    float se_a = 0.f, se_b = 0.f, ss_a = 0.f, ss_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float x = acc[j];
+      const float e = exp2f(fmaf(x, kLog2e, (j & 2) ? nb : na));  // 0: masked
+      const float ex = e > 0.f ? e * x : 0.f;
+      if (j & 2) {
+        se_b += e;
+        ss_b += ex;
+      } else {
+        se_a += e;
+        ss_a += ex;
+      }
+    }
+    l_a = l_a * corr_a + se_a;
+    l_b = l_b * corr_b + se_b;
+    s_a = s_a * corr_a + ss_a;
+    s_b = s_b * corr_b + ss_b;
+    const int ca = tgt_a - n0, cb = tgt_b - n0;
+    if (ca >= 0 && ca < BN) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if (!(j & 2) && 8 * (j / 4) + col0 + (j & 1) == ca) lt_a = acc[j];
+    }
+    if (cb >= 0 && cb < BN) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if ((j & 2) && 8 * (j / 4) + col0 + (j & 1) == cb) lt_b = acc[j];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+    lt_a += __shfl_xor_sync(0xffffffffu, lt_a, off);
+    lt_b += __shfl_xor_sync(0xffffffffu, lt_b, off);
+  }
+  if (lane % 4 == 0) {
+    const long long plane = (long long)gridDim.y * a.rows;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row_b : row_a;
+      if (row >= a.rows) continue;
+      const long long at = (long long)split * a.rows + row;
+      a.part[at] = h ? m_b : m_a;
+      a.part[plane + at] = h ? l_b : l_a;
+      a.part[2 * plane + at] = h ? s_b : s_a;
+      a.part[3 * plane + at] = h ? lt_b : lt_a;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry point, looked up through the
+// runtime so that the build links no -lcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D bf16 map over [outer, inner] at `ptr` (row stride `ld` elements),
+// boxes of [box_outer x 64], 128-byte swizzled, zero fill out of bounds
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+              long long inner, long long outer, long long ld, int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {2ull * (unsigned long long)ld};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// h [rows, d] contiguous; w [d, V] with strides (sk, sn), one of them 1
+cudaError_t launch(const void* h, const void* w, const int* targets,
+                   const Shape& s, int splits, int tiles_per_split,
+                   float* part, cudaStream_t stream) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const bool mn = s.sk != 1;  // V-contiguous w: [d, V] rows of stride sk
+  CUtensorMap th, tw;
+  if (!make_map(enc, &th, h, s.d, s.rows, s.d, 64) ||
+      !(mn ? make_map(enc, &tw, w, s.V, s.d, s.sk, 64)
+           : make_map(enc, &tw, w, s.d, s.V, s.sn, BN)))
+    return cudaErrorInvalidValue;
+  const Params p{targets, part, s.rows, s.V, s.d, (s.V + BN - 1) / BN,
+                 tiles_per_split};
+  dim3 grid((s.rows + BM - 1) / BM, splits);
+  auto kern = mn ? &forward_partial<1> : &forward_partial<0>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, NT, Smem::alloc, stream>>>(th, tw, p);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" int token_logprob_entropy_forward(
@@ -404,4 +806,27 @@ extern "C" int token_logprob_entropy_dlogits(
         (const float*)mean_logit, (const float*)g_logp, (const float*)g_ent,
         s, (float*)dl, (cudaStream_t)stream);
   });
+}
+
+// The bf16 forward through TMA and wgmma (namespace wg): h [rows, d]
+// contiguous, w [d, V] with strides (sk, sn), one of them 1; d and the
+// other stride multiples of 8, both operands 16-byte aligned (the tensor
+// maps); the caller checks.
+extern "C" int token_logprob_entropy_forward_wgmma(
+    const void* h, const void* w, const void* targets, void* part,
+    void* logp, void* ent, void* logz, void* mean_logit, int rows, int d,
+    int V, long long sk, long long sn, int splits, int tiles_per_split,
+    void* stream) {
+  if (rows <= 0) return 0;
+  if ((sk != 1 && sn != 1) || d % 8 != 0 || (sk == 1 ? sn : sk) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Shape s{rows, d, V, sk, sn};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = wg::launch(h, w, (const int*)targets, s, splits,
+                               tiles_per_split, (float*)part, st);
+  if (err != cudaSuccess) return (int)err;
+  forward_merge<<<(rows + 255) / 256, 256, 0, st>>>(
+      (const float*)part, splits, rows, (float*)logp, (float*)ent,
+      (float*)logz, (float*)mean_logit);
+  return (int)cudaGetLastError();
 }

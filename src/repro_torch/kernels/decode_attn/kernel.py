@@ -13,9 +13,6 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-# query heads one block serves per KV head (MAX_G in csrc/decode_attn.cu)
-MAX_GROUP = 8
-
 
 @functools.lru_cache(maxsize=None)
 def fn():

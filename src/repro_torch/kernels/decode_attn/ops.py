@@ -24,7 +24,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_paged_inputs(q, pool_k, pool_v, block_tables, *int_rows):
     """Validate the operands a paged kernel takes; returns (dtype code, H,
-    KV, hd, bs, mb)."""
+    KV, hd, bs, mb). Any group size H / KV is taken."""
     dev = q.device
     tensors = (q, pool_k, pool_v, block_tables) + int_rows
     if any(t.device != dev for t in tensors):
@@ -45,12 +45,9 @@ def check_paged_inputs(q, pool_k, pool_v, block_tables, *int_rows):
                          f"{tuple(block_tables.shape)}")
     _, H, hd = q.shape
     _, bs, KV, hd_k = pool_k.shape
-    if hd_k != hd or hd not in (64, 128) or H % KV:
+    if hd_k != hd or hd not in (64, 128) or KV == 0 or H % KV:
         raise ValueError(f"paged attention: head_dim {hd} (pool {hd_k}) must "
                          f"be 64 or 128, and H={H} a multiple of KV={KV}")
-    if H // KV > paged_kernel.MAX_QUERY_VECTORS:
-        raise ValueError(f"paged attention: group H/KV={H // KV} > "
-                         f"{paged_kernel.MAX_QUERY_VECTORS}")
     return _DTYPE_CODES[q.dtype], H, KV, hd, bs, block_tables.shape[1]
 
 
@@ -100,7 +97,7 @@ def paged_decode_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
 
 def check_dense_inputs(q, k_cache, v_cache, lengths):
     """Validate the operands the dense decode kernel takes; returns (dtype
-    code, B, H, KV, L, hd)."""
+    code, B, H, KV, L, hd). Any group size H / KV is taken."""
     tensors = (q, k_cache, v_cache, lengths)
     if any(t.device != q.device for t in tensors):
         raise ValueError("decode attention: all operands on one device")
@@ -118,13 +115,13 @@ def check_dense_inputs(q, k_cache, v_cache, lengths):
     B, H, hd = q.shape
     _, L, KV, hd_k = k_cache.shape
     if k_cache.shape[0] != B or lengths.shape != (B,) or hd_k != hd \
-            or L == 0 or H % KV:
+            or L == 0 or KV == 0 or H % KV:
         raise ValueError(f"decode attention: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if hd not in (64, 128) or H // KV > kernel.MAX_GROUP:
+    if hd not in (64, 128):
         raise ValueError(f"decode attention: head_dim {hd} must be 64 or "
-                         f"128 and H/KV={H // KV} at most {kernel.MAX_GROUP}")
+                         f"128")
     return _DTYPE_CODES[q.dtype], B, H, KV, L, hd
 
 

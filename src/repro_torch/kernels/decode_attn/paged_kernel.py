@@ -15,9 +15,6 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-# query heads per KV head the wrapper takes (the kernel serves them in
-# chunks of 16 per block in bf16, 8 in float32)
-MAX_QUERY_VECTORS = 32
 # split plan: at least WAVES blocks per SM when every slot is full, no
 # split shorter than MIN_SPLIT_KEYS keys (one 16-key tile per warp), and at
 # most MAX_SPLITS splits, the blocks of one thread-block cluster that merge

@@ -13,9 +13,6 @@ from repro_torch.kernels import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# query heads per KV head (MAX_G in csrc/flash_attn.cu)
-MAX_GROUP = 8
-
 
 @functools.lru_cache(maxsize=None)
 def fn():

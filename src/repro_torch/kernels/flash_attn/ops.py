@@ -26,7 +26,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Validate what the kernel takes; returns the dtype code. Any strides
     over (batch, head, position) are taken, hd must be contiguous, and bf16
     rows must start on 16-byte boundaries, with no stride of 0 over a
-    dimension longer than 1 (the kernel's TMA tensor maps)."""
+    dimension longer than 1 (the kernel's TMA tensor maps). Any group size
+    H / KV is taken."""
     tensors = (q, k, v)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash attention: all operands on one device")
@@ -42,10 +43,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, KV, S, hd) or KV == 0 or H % KV or S == 0:
         raise ValueError(f"flash attention: q {tuple(q.shape)} against k/v "
                          f"{tuple(k.shape)}")
-    if hd not in (64, 128) or H // KV > kernel.MAX_GROUP:
+    if hd not in (64, 128):
         raise ValueError(f"flash attention: head_dim {hd} must be 64 or "
-                         f"128 and H/KV={H // KV} at most "
-                         f"{kernel.MAX_GROUP}")
+                         f"128")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash attention: head_dim must be contiguous")
     if q.dtype == torch.bfloat16 and any(

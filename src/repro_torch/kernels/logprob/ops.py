@@ -2,17 +2,22 @@
 (``repro.kernels.logprob.ops``).
 
 ``token_logprob_entropy`` is a ``torch.autograd.Function``. On a CUDA
-tensor its forward is the CUDA kernel (the [T, V] logits never reach device
-memory) and its backward recomputes the logits tile by tile in a second
-kernel that writes the float32 logit cotangent for a chunk of ``CHUNK``
-tokens; ``dh = dl @ w^T`` and ``dw += h^T @ dl`` then go to float32
-``torch.matmul``, as the reference leaves its gradient products to XLA.
+tensor its forward is a CUDA kernel (the [T, V] logits never reach device
+memory), chosen by dtype and alignment: bf16 operands whose rows are
+16-byte aligned take the TMA + wgmma kernel, any others the first design
+(wmma or float32 FMAs). Its backward recomputes the logits tile by tile in
+a second kernel that writes the float32 logit cotangent for a chunk of
+``CHUNK`` tokens; ``dh = dl @ w^T`` and ``dw += h^T @ dl`` then go to
+float32 ``torch.matmul``, as the reference leaves its gradient products to
+XLA.
 On a CPU tensor both directions take the plain version in ``ref.py``
 (``use_kernel=False`` selects it on any device, as a check). There is no
 fallback from a CUDA tensor to the plain version.
 
 ``LAUNCHES`` counts kernel launches by direction (the backward launches
-once per token chunk), and nothing else.
+once per token chunk), and nothing else; ``"forward_wgmma"`` counts the
+forward launches that took the wgmma kernel (they count in ``"forward"``
+too).
 """
 from __future__ import annotations
 
@@ -20,13 +25,14 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.decode_attn.paged_kernel import sm_count
 from repro_torch.kernels.logprob import kernel
 from repro_torch.kernels.logprob.ref import (
     token_logprob_entropy_bwd_ref,
     token_logprob_entropy_stats_ref,
 )
 
-LAUNCHES = {"forward": 0, "backward": 0}
+LAUNCHES = {"forward": 0, "forward_wgmma": 0, "backward": 0}
 
 # tokens per backward chunk: the float32 [CHUNK, V] cotangent buffer is
 # 0.6 GB at V = 151,936
@@ -41,7 +47,8 @@ def _stream(t: torch.Tensor) -> int:
 
 def check_inputs(hidden: torch.Tensor, w: torch.Tensor,
                  targets: torch.Tensor):
-    """Validate what the kernels take; returns (dtype code, sk, sn, vec)."""
+    """Validate what the kernels take; returns (dtype code, sk, sn, vec),
+    vec = 1 where the first design's 16-byte loads apply."""
     if hidden.dim() != 2 or w.dim() != 2 or targets.dim() != 1 \
             or w.shape[0] != hidden.shape[1] \
             or targets.shape[0] != hidden.shape[0]:
@@ -67,21 +74,44 @@ def check_inputs(hidden: torch.Tensor, w: torch.Tensor,
     return _DTYPE_CODES[hidden.dtype], sk, sn, int(vec)
 
 
+def takes_wgmma(hidden: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the forward takes the TMA + wgmma kernel: bf16 operands whose
+    rows start on 16-byte boundaries (d and w's other stride multiples of
+    8, both pointers 16-byte aligned), as its tensor maps need. The
+    operands are checked by ``check_inputs`` first."""
+    sk, sn = w.stride()
+    return (hidden.dtype == torch.bfloat16 and hidden.shape[1] % 8 == 0
+            and (sn if sk == 1 else sk) % 8 == 0
+            and hidden.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
 def _forward_kernel(hidden, w, targets):
     code, sk, sn, vec = check_inputs(hidden, w, targets)
     T, d = hidden.shape
     V = w.shape[1]
-    splits, per = kernel.split_plan(T, V)
+    wgmma = takes_wgmma(hidden, w)
+    if wgmma:
+        dev = hidden.device.index
+        splits, per = kernel.wgmma_plan(T, V, sm_count(
+            torch.cuda.current_device() if dev is None else dev))
+    else:
+        splits, per = kernel.split_plan(T, V)
     f32 = dict(dtype=torch.float32, device=hidden.device)
     part = torch.empty(4, splits, T, **f32)
     logp, ent, logz, mu = (torch.empty(T, **f32) for _ in range(4))
-    err = kernel.forward_fn()(
-        hidden.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
-        logp.data_ptr(), ent.data_ptr(), logz.data_ptr(), mu.data_ptr(),
-        T, d, V, sk, sn, splits, per, code, vec, _stream(hidden))
+    ptrs = (hidden.data_ptr(), w.data_ptr(), targets.data_ptr(),
+            part.data_ptr(), logp.data_ptr(), ent.data_ptr(), logz.data_ptr(),
+            mu.data_ptr())
+    if wgmma:
+        err = kernel.forward_wgmma_fn()(*ptrs, T, d, V, sk, sn, splits, per,
+                                        _stream(hidden))
+    else:
+        err = kernel.forward_fn()(*ptrs, T, d, V, sk, sn, splits, per, code,
+                                  vec, _stream(hidden))
     if err != 0:
         raise RuntimeError(f"token_logprob_entropy_forward: CUDA error {err}")
     LAUNCHES["forward"] += 1
+    LAUNCHES["forward_wgmma"] += int(wgmma)
     return logp, ent, logz, mu
 
 

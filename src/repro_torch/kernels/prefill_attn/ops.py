@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attn import paged_kernel
 from repro_torch.kernels.decode_attn.ops import check_paged_inputs
 from repro_torch.kernels.prefill_attn import kernel
 from repro_torch.kernels.prefill_attn.ref import paged_prefill_attention_ref
@@ -45,14 +46,23 @@ def paged_prefill_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
     if seg_ids.shape != (C,) or q_pos.shape != (C,):
         raise ValueError(f"paged prefill: {C} rows, seg_ids "
                          f"{tuple(seg_ids.shape)}, q_pos {tuple(q_pos.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError("paged prefill: q and pools must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if C == 0:
         return out
+    if code == 0:  # float32: the simple kernel, one split
+        pps, n_splits = mb, 1
+    else:
+        dev = q.device.index
+        n_sm = paged_kernel.sm_count(torch.cuda.current_device()
+                                     if dev is None else dev)
+        pps, n_splits = kernel.split_plan(C, H // KV, KV, mb, bs, n_sm)
     err = kernel.fn()(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         block_tables.data_ptr(), seg_ids.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), C, H, KV, hd, bs, mb,
-        kernel.rows_per_block(H // KV), code,
+        out.data_ptr(), C, H, KV, hd, bs, mb, pps, n_splits, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill_attention: CUDA error {err}")

@@ -111,6 +111,8 @@ DECODE_SWEEP = [
     (1, 8, 1, 8, 4, 6, 32),     # MQA
     (4, 12, 2, 64, 16, 8, 128),  # Qwen2.5-1.5B heads (G=6)
     (3, 2, 1, 32, 8, 4, 64),    # toy-2m heads
+    (2, 12, 1, 16, 8, 4, 32),   # a group of 12 (command-r-plus's size)
+    (2, 48, 1, 16, 8, 4, 16),   # a group of 48 (granite-34b's MQA)
 ]
 
 
@@ -139,6 +141,8 @@ PREFILL_SWEEP = [
     (16, 3, 8, 4, 32, 16, 2, 16),   # MHA-ish, 3-way packing
     (4, 1, 8, 1, 8, 4, 6, 32),      # MQA, single segment
     (24, 3, 12, 2, 64, 16, 8, 128),  # Qwen2.5-1.5B heads
+    (8, 2, 12, 1, 16, 8, 4, 32),     # a group of 12
+    (6, 2, 48, 1, 16, 8, 4, 16),     # a group of 48
 ]
 
 
@@ -204,7 +208,7 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
 
 
 @pytest.mark.parametrize("case", ["noncontig", "int64_tables", "hd32",
-                                  "mixed_dtype", "group_too_large"])
+                                  "mixed_dtype", "heads_not_a_multiple"])
 def test_kernel_input_checks(case):
     """The wrapper's operand checks reject what the CUDA kernel does not
     take (they run before any launch, so they are testable on the CPU)."""
@@ -220,8 +224,8 @@ def test_kernel_input_checks(case):
         q, pool = torch.zeros(2, 4, 32), torch.zeros(8, 4, 2, 32)
     elif case == "mixed_dtype":
         q = q.to(torch.bfloat16)
-    elif case == "group_too_large":
-        q, pool = torch.zeros(2, 66, 64), torch.zeros(8, 4, 2, 64)
+    elif case == "heads_not_a_multiple":  # H = 5 query heads over KV = 2
+        q = torch.zeros(2, 5, 64)
     with pytest.raises(ValueError):
         dops.check_paged_inputs(q, pool, pool, tables, lens)
     # well-formed operands pass and report (dtype code, H, KV, hd, bs, mb)
@@ -231,6 +235,28 @@ def test_kernel_input_checks(case):
                                    torch.zeros(2, 3, dtype=torch.int32),
                                    torch.ones(2, dtype=torch.int32))
     assert good == (0, 4, 2, 64, 4, 3)
+
+
+@pytest.mark.parametrize("G", [12, 33, 48])
+def test_any_group_size_is_taken(G):
+    """The attention wrappers take every group size G = H / KV that the
+    Pallas kernels take (command-r-plus's 12, granite-34b's 48, an odd 33):
+    the paged checks, the dense decode check and flash's, in both dtypes."""
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for KV in (1, 2):
+            H = G * KV
+            pool = torch.zeros(8, 4, KV, 128, dtype=dtype)
+            assert dops.check_paged_inputs(
+                torch.zeros(3, H, 128, dtype=dtype), pool, pool,
+                torch.zeros(3, 2, dtype=torch.int32),
+                torch.ones(3, dtype=torch.int32)) == (code, H, KV, 128, 4, 2)
+            kc = torch.zeros(3, 16, KV, 64, dtype=dtype)
+            assert dops.check_dense_inputs(
+                torch.zeros(3, H, 64, dtype=dtype), kc, kc,
+                torch.ones(3, dtype=torch.int32)) == (code, 3, H, KV, 16, 64)
+            q = torch.zeros(2, 24, H, 128, dtype=dtype).transpose(1, 2)
+            k = torch.zeros(2, 24, KV, 128, dtype=dtype).transpose(1, 2)
+            assert fops.check_inputs(q, k, k, None) == code
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
@@ -278,6 +304,96 @@ def test_decode_split_plan_covers_every_key_once(S, KV):
         assert (covered == 1).all(), (mb, bs, n_sm, pps, n)
         # no split shorter than MIN_SPLIT_KEYS unless the table is
         assert pps * bs >= min(paged_kernel.MIN_SPLIT_KEYS, mb * bs) or pps == mb
+
+
+def _prefill_walk(C, G, KV, mb, bs, n_sm, seg, pos):
+    """How many times the bf16 paged prefill kernel visits each (query
+    vector, key position) pair of one KV head, under the wrapper's split
+    plan: blocks of BLOCK_VECTORS vectors (row t, head g -> t * G + g) x
+    splits; a block walks each distinct segment of its rows up to that
+    segment's largest position in the block, within its split's keys, and
+    a vector takes the keys j < min(pos + 1, split end) of its own
+    segment (csrc/paged_prefill_attn.cu, tc::prefill_split_kernel)."""
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    pps, n_splits = pk.split_plan(C, G, KV, mb, bs, n_sm)
+    assert 1 <= pps <= mb and 1 <= n_splits <= pk.MAX_SPLITS
+    assert pps * n_splits >= mb and pps * bs >= min(pk.MIN_SPLIT_KEYS,
+                                                    mb * bs) or pps == mb
+    seen = np.zeros((C * G, mb * bs), np.int32)
+    lim = np.where(seg >= 0, pos, -1)
+    for v0 in range(0, C * G, pk.BLOCK_VECTORS):
+        vs = np.arange(v0, min(v0 + pk.BLOCK_VECTORS, C * G))
+        rows = np.unique(vs // G)
+        for split in range(n_splits):
+            ks0 = split * pps * bs
+            ks1 = min(ks0 + pps * bs, mb * bs)
+            for sg in np.unique(seg[rows]):
+                if sg < 0:
+                    continue
+                k_end = min(ks1, int(lim[rows][seg[rows] == sg].max()) + 1)
+                for v in vs:
+                    t = v // G
+                    if seg[t] != sg:
+                        continue
+                    end = min(k_end, int(lim[t]) + 1)
+                    if end > ks0:
+                        seen[v, ks0:end] += 1
+    return seen, lim
+
+
+@pytest.mark.parametrize("C,G,KV,n_sm", [(256, 6, 2, 132), (64, 1, 32, 132),
+                                         (40, 12, 1, 8), (33, 48, 1, 132),
+                                         (100, 6, 2, 1)])
+def test_prefill_split_plan_covers_every_key_once(C, G, KV, n_sm):
+    """The paged prefill wrapper's split plan and the kernel's walk: for
+    ragged packed chunks (several segments, runs ending on page and split
+    boundaries and one key past them, padding rows, rows of one segment
+    split across vector tiles), every row's keys 0 .. q_pos are visited
+    exactly once per query head and no other key is; the plan reads only
+    host-known sizes."""
+    import inspect
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    assert list(inspect.signature(pk.split_plan).parameters) == [
+        "C", "G", "KV", "mb", "bs", "n_sm"]
+    rng = np.random.default_rng(C * G + KV)
+    for mb, bs in ((128, 16), (6, 4), (9, 8), (3, 1)):
+        pps, _ = pk.split_plan(C, G, KV, mb, bs, n_sm)
+        sk, full = pps * bs, mb * bs
+        ends = [full, sk, sk + 1, sk - 1, bs, bs + 1, 1] + [
+            int(x) for x in rng.integers(1, full + 1, size=4)]
+        seg, pos = [], []
+        for s, end in enumerate(ends):  # a run of the segment's last keys
+            end = max(1, min(end, full))
+            n = min(int(rng.integers(1, 2 * G + 3)), end, C - len(seg))
+            seg += [s] * n
+            pos += list(range(end - n, end))
+        seg += [-1] * (C - len(seg))
+        pos += [0] * (C - len(pos))
+        seg, pos = np.array(seg, np.int32), np.array(pos, np.int32)
+        seen, lim = _prefill_walk(C, G, KV, mb, bs, n_sm, seg, pos)
+        want = (np.arange(full)[None, :] <= lim[:, None]).astype(np.int32)
+        assert (seen == np.repeat(want, G, axis=0)).all(), (mb, bs, pps)
+
+
+@pytest.mark.parametrize("rows,vocab,n_sm", [(2300, 151936, 132),
+                                             (512, 151936, 132),
+                                             (300, 1000, 132), (7, 22, 132),
+                                             (4096, 50280, 114), (1, 1, 1)])
+def test_logprob_wgmma_plan_covers_the_vocabulary_once(rows, vocab, n_sm):
+    """The wgmma forward's plan: its vocab ranges cover the vocabulary's
+    tiles exactly once, none empty, and at the training step's shape it
+    fills the card's SMs in whole waves."""
+    from repro_torch.kernels.logprob import kernel as lk
+    splits, per = lk.wgmma_plan(rows, vocab, n_sm)
+    n_vt = -(-vocab // lk.WG_BN)
+    covered = np.zeros(n_vt, np.int32)
+    for s in range(splits):  # range s as the kernel walks it
+        t0, t1 = s * per, min((s + 1) * per, n_vt)
+        assert t0 < t1
+        covered[t0:t1] += 1
+    assert (covered == 1).all()
+    if (rows, vocab, n_sm) == (2300, 151936, 132):
+        assert -(-rows // lk.WG_BM) * splits % n_sm == 0
 
 
 def _chip_smoke():
@@ -333,6 +449,34 @@ def test_bf16_tolerance_sees_a_missing_key(kernel):
             torch.bfloat16), ref, cs.TOL["bfloat16"], {})
 
 
+def test_chip_smoke_prefill_cases_hit_their_boundaries():
+    """chip_smoke.py's paged prefill cases are what they claim: packed
+    chunks of at most 256 rows within the 128-page tables, the engine's
+    first chunk from position 0 filling the 256 rows shortest prompt
+    first, and the split-boundary case's short row (one key past a split)
+    the last row of its slot at position split_keys."""
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    cs = _chip_smoke()
+    cases = {c["label"]: c for c in cs._prefill_cases(torch, n_sm=132)}
+    assert set(cases) == {"last_chunk_of_1024", "engine_first_chunk",
+                          "zamba2_heads", "group_12", "group_48",
+                          "split_boundaries"}
+    for c in cases.values():
+        rows = sum(n for _, _, n in c["runs"]) + c["pad"]
+        assert rows <= 256 and all(0 <= st and st + n <= 128 * 16
+                                   for _, st, n in c["runs"])
+    first = cases["engine_first_chunk"]["runs"]
+    assert sum(n for _, _, n in first) == 256 and len(first) >= 2
+    assert all(st == 0 for _, st, _ in first)
+    c = cases["split_boundaries"]
+    C = sum(n for _, _, n in c["runs"]) + c["pad"]
+    pps, _ = pk.split_plan(C, 6, 2, 128, 16, 132)
+    (row, _), = [(r, k) for k, r in c["short_rows"].items()]
+    pos = [st + i for _, st, n in c["runs"] for i in range(n)]
+    seg = [s_ for s_, _, n in c["runs"] for _ in range(n)]
+    assert pos[row] == pps * 16 and seg[row + 1] != seg[row]
+
+
 # ------------------------------------------------ dense decode, flash attention
 def _flash_inputs(seed, B, H, KV, S, hd):
     rng = np.random.default_rng(seed)
@@ -348,6 +492,8 @@ FLASH_SWEEP = [
     (1, 6, 2, 64, 128, 16, 16),      # Qwen2.5-1.5B group (G=3), window 16
     (2, 4, 1, 96, 64, None, 96),     # MQA, S 96
     (1, 2, 1, 96, 64, 40, 32),       # toy-2m heads, window over blocks
+    (1, 12, 1, 64, 64, None, 32),    # a group of 12
+    (1, 48, 1, 32, 64, 16, 16),      # a group of 48, window 16
 ]
 
 
@@ -383,6 +529,8 @@ DENSE_DECODE_SWEEP = [
     (4, 12, 2, 64, 128),   # Qwen2.5-1.5B heads (G=6)
     (2, 2, 1, 32, 64),     # toy-2m heads
     (3, 8, 8, 40, 64),     # MHA
+    (2, 12, 1, 32, 64),    # a group of 12
+    (2, 48, 1, 24, 64),    # a group of 48
 ]
 
 
@@ -451,7 +599,7 @@ def test_dense_kernel_input_checks():
         (qd, kc, kc, lens.long()),                     # int64 lengths
         (qd, kc.transpose(1, 2), kc.transpose(1, 2), lens),  # strided
         (qd.bfloat16(), kc, kc, lens),                 # mixed dtypes
-        (torch.zeros(3, 18, 64), kc, kc, lens),        # group of 9
+        (torch.zeros(3, 5, 64), kc, kc, lens),         # H % KV
         (qd, kc, kc, lens[:2]),                        # B mismatch
     ]
     for args in bad_decode:
@@ -676,7 +824,8 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
                                              (torch.bfloat16, 1e-2, 1e-4)])
 @pytest.mark.parametrize("H,KV,hd,bs", [(12, 2, 128, 16), (2, 1, 64, 8),
-                                        (8, 8, 64, 4)])
+                                        (8, 8, 64, 4), (12, 1, 128, 16),
+                                        (48, 1, 128, 16)])
 def test_cuda_kernels_vs_plain(cuda_device, dtype, rtol, atol, H, KV, hd,
                                bs):
     """Both CUDA kernels against their plain versions in float32 on the
@@ -760,20 +909,26 @@ def test_cuda_a3po_loss_vs_plain(cuda_device, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,d,V,dtype,layout", [
-    (300, 130, 1000, torch.float32, "tied"),
-    (7, 48, 22, torch.float32, "dv"),
-    (64, 512, 513, torch.bfloat16, "tied"),
-    (129, 64, 4096, torch.bfloat16, "dv"),
-    (100, 128, 1000, torch.bfloat16, "tied"),
+@pytest.mark.parametrize("T,d,V,dtype,layout,wgmma", [
+    (300, 130, 1000, torch.float32, "tied", False),
+    (7, 48, 22, torch.float32, "dv", False),
+    (64, 512, 513, torch.bfloat16, "tied", True),
+    (129, 64, 4096, torch.bfloat16, "dv", True),
+    (100, 128, 1000, torch.bfloat16, "tied", True),
+    (300, 1536, 1000, torch.bfloat16, "tied", True),  # d of Qwen2.5-1.5B
+    (300, 1536, 1000, torch.bfloat16, "dv", True),
+    (40, 100, 777, torch.bfloat16, "dv", False),  # rows not 16-byte aligned
 ])
-def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
+def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
     """Token logprob + entropy kernel, forward and backward, against its
     plain version in float32 on the same input values (the kernel
     accumulates in float32; bf16 products are exact in float32), for both
     layouts of w, odd vocabularies and depths that are not a multiple of
-    the tile depth. Tolerances: forward 1e-4 + 1e-5 |ref|; backward
-    1e-5 max|ref| + (1e-4 float32, 1e-2 bf16 output rounding) |ref|."""
+    the tile depth; T and V not multiples of the wgmma kernel's tiles (128
+    tokens, 128 vocab entries). bf16 operands with 16-byte aligned rows
+    take the wgmma forward, others the first design: LAUNCHES says which.
+    Tolerances: forward 1e-4 + 1e-5 |ref|; backward 1e-5 max|ref| + (1e-4
+    float32, 1e-2 bf16 output rounding) |ref|."""
     h, w, t = _logprob_inputs(T * 7 + d, T, d, V)
     th = torch.from_numpy(h).to(cuda_device, dtype)
     if layout == "tied":
@@ -783,6 +938,7 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
         tw = torch.from_numpy(w).to(cuda_device, dtype)
     tt = torch.from_numpy(t).to(cuda_device)
     f0, b0 = lops.LAUNCHES["forward"], lops.LAUNCHES["backward"]
+    w0 = lops.LAUNCHES["forward_wgmma"]
     hk = th.clone().requires_grad_(True)
     wk = tw.detach().clone().requires_grad_(True) if layout == "dv" else \
         tw.detach().T.clone().requires_grad_(True)
@@ -803,6 +959,8 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
         torch.testing.assert_close(o.float(), r, rtol=rtol,
                                    atol=1e-5 * float(r.abs().max()))
     assert lops.LAUNCHES["forward"] - f0 == 1
+    assert lops.LAUNCHES["forward_wgmma"] - w0 == int(wgmma)
+    assert lops.takes_wgmma(hk, wk if layout == "dv" else wk.T) == wgmma
     assert lops.LAUNCHES["backward"] - b0 == -(-T // lops.CHUNK)
 
 
@@ -815,6 +973,8 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout):
     (3, 2, 1, 37, 64, None, "bhsd"),      # toy-2m heads, S < one key tile
     (1, 16, 2, 130, 64, None, "bshd"),    # group of 8
     (2, 12, 2, 1000, 128, 16, "bshd"),    # window smaller than a tile
+    (1, 12, 1, 200, 128, None, "bshd"),   # a group of 12
+    (1, 48, 1, 130, 128, 64, "bhsd"),     # a group of 48 (six chunks)
 ])
 def test_cuda_flash_vs_plain(cuda_device, dtype, rtol, atol, B, H, KV, S,
                              hd, window, layout):
@@ -840,7 +1000,9 @@ def test_cuda_flash_vs_plain(cuda_device, dtype, rtol, atol, B, H, KV, S,
                                              (torch.bfloat16, 1e-2, 1e-4)])
 @pytest.mark.parametrize("B,H,KV,L,hd", [(5, 12, 2, 1056, 128),
                                          (3, 2, 1, 40, 64),
-                                         (2, 16, 2, 300, 64)])
+                                         (2, 16, 2, 300, 64),
+                                         (2, 12, 1, 300, 128),
+                                         (2, 48, 1, 300, 128)])
 def test_cuda_dense_decode_vs_plain(cuda_device, dtype, rtol, atol, B, H,
                                     KV, L, hd):
     """Dense decode kernel against its plain version in float32 on the same
@@ -857,3 +1019,62 @@ def test_cuda_dense_decode_vs_plain(cuda_device, dtype, rtol, atol, B, H,
     lengths[1] = 0
     assert bool((dops.decode_attention_op(q, kc, vc, lengths)[1] == 0).all())
     assert dops.DENSE_LAUNCHES - d0 == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 1e-4)])
+@pytest.mark.parametrize("case", ["last_chunk", "first_chunk", "zamba2",
+                                  "split_boundaries", "round_robin"])
+def test_cuda_prefill_cases(cuda_device, dtype, rtol, atol, case):
+    """Paged prefill against its plain version in float32 on the same
+    input values at the chunks the engine packs: the last chunk of a
+    1024-token prompt (one segment of 256 rows at 768 .. 1023), a first
+    chunk of several prompts from position 0, zamba2's heads (H = KV = 32,
+    hd 64), rows ending on page and split boundaries and one key past
+    them, and rows of segments taken in turn (a tile of many segments);
+    padding rows give 0; one launch each."""
+    from repro_torch.kernels.prefill_attn import kernel as pk
+    H, KV, hd, bs, mb = 12, 2, 128, 16, 128
+    rng = np.random.default_rng(31)
+    if case == "zamba2":
+        H, KV, hd = 32, 32, 64
+    S = 8
+    pool_k, pool_v, _, _ = _paged_pool(32, S, KV, S * mb, bs, mb, hd)
+    tables = rng.permutation(S * mb).reshape(S, mb).astype(np.int32)
+    pps, _ = pk.split_plan(256, H // KV, KV, mb, bs, 132)
+    sk = pps * bs
+    if case == "last_chunk":
+        seg, pos = [0] * 256, list(range(768, 1024))
+    elif case == "round_robin":
+        lengths = rng.integers(300, mb * bs + 1, size=S)
+        seg, pos = (list(a) for a in _prefill_rows(33, 252, lengths, 0))
+    else:
+        if case == "split_boundaries":
+            ends = [sk, sk + 1, sk - 1, 2 * sk + 1, bs, bs + 1, 1, mb * bs]
+        else:  # prompts from position 0, shortest remaining first
+            ends = sorted(int(x) for x in rng.integers(20, 120, size=S))
+        seg, pos = [], []
+        for s_, end in enumerate(ends):
+            n = min(end, 31, 248 - len(seg))
+            seg += [s_] * n
+            pos += list(range(end - n, end))
+    seg += [-1] * 8
+    pos += [0] * 8
+    seg, pos = np.array(seg, np.int32), np.array(pos, np.int32)
+    lens = np.zeros(S, np.int64)
+    for s_ in range(S):
+        if (seg == s_).any():
+            lens[s_] = pos[seg == s_].max() + 1
+        tables[s_, -(-int(max(lens[s_], 1)) // bs):] = -1
+    C = len(seg)
+    q = rng.standard_normal((C, H, hd)).astype(np.float32)
+    tq, tk, tv = (t.to(cuda_device, dtype) for t in _t(q, pool_k, pool_v))
+    tt, ts, tp = (t.to(cuda_device) for t in _t(tables, seg, pos))
+    p0 = pops.LAUNCHES
+    out = pops.paged_prefill_attention_op(tq, tk, tv, tt, ts, tp)
+    assert pops.LAUNCHES - p0 == 1
+    ref = paged_prefill_attention_ref(tq.float(), tk.float(), tv.float(), tt,
+                                      ts, tp)
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    assert bool((out[ts < 0] == 0).all())
