@@ -46,9 +46,17 @@ Phases, each printing one JSON line:
              kernel, and at V 1000 in float32 through the first design,
              against the plain version in float32 on the same values, with a
              tolerance a reference one vocab tile short fails; backward dh,
-             dw at T 512 against autograd of the plain version), each timed
-             beside its bound, its plain version and, where one exists, a
-             library yardstick.
+             dw at T 2300 (three token chunks) through the wgmma route
+             against the plain float32 backward on the same logz, mu and
+             cotangents, and at T 512 through autograd against autograd of
+             the plain version, each with a reference that drops the
+             entropy's cotangent failing it; the kernel's dl, a bf16 high
+             part and remainder, against the plain float32 dl; dh, dw from
+             the high parts alone recorded beside), each timed beside its
+             bound (the backward's: its three products of 2 T d V flops at
+             the bf16 tensor-core rate), its plain version and, where one
+             exists, a library yardstick; the backward also with its peak
+             device memory above its inputs.
 6. training — Qwen2.5-1.5B at full width and depth (bf16, layer weights
              x8) serves two batches of 16 sampled requests (4 prompts x a
              group of 4, prompts 64-512 tokens, 64 new tokens) through the
@@ -71,10 +79,15 @@ Phases, each printing one JSON line:
              decode attention (B 16, L 1056, lengths 1 .. L) on bf16 inputs,
              each against its plain version in float32 on the same values
              within 1e-4 + 1e-2 |ref|, which a wrong reference must fail
-             (flash: the diagonal masked; decode: lengths - 1), timed beside
-             its bound, its plain version and SDPA as a yardstick (flash
-             also in TFLOP/s); both again at groups of 12 and 48 query heads
-             over one KV head (flash at B 4), timed.
+             (flash: the diagonal masked; decode: lengths - 1 and one key
+             short at the longest row), timed beside its bound, its plain
+             version and SDPA as a yardstick (flash also in TFLOP/s); both
+             again at groups of 12 and 48 query heads over one KV head
+             (flash at B 4), timed; dense decode also at lengths on its
+             split and 16-key tile boundaries at L 1056 and L 1000 (not a
+             multiple of the tile), with a wrong reference one key short
+             at the row one key past a split boundary; each decode record
+             gives the wrapper's split plan.
 9. rollout — the dense RolloutEngine (prefill through the flash kernel,
              decode through the dense decode kernel) at Qwen2.5-1.5B, full
              width and depth, bf16, layer weights x8: PR 11's 16 requests
@@ -119,8 +132,10 @@ Phases, each printing one JSON line:
              same way; the traced prefill / decode split, the device idle
              share of a profiled run and peak memory.
 13. the kernels line (all ten kernels, each with the shape its ms and
-             bound belong to; the logprob forward's also with its wgmma
-             launches on the main path), then the contract line (last):
+             bound belong to; the logprob forward's and backward's also with
+             their wgmma launches on the main path, the backward's with its
+             peak memory, dense decode's with its split plan), then the
+             contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -134,6 +149,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -704,9 +720,9 @@ def phase_dense_kernels(torch):
     """Flash attention and dense decode (the rollout engine's kernels) on
     bf16 inputs against their plain versions in float32 on the same
     values, each with a wrong reference the tolerance must fail, timed
-    beside its bound, its plain version and a library yardstick."""
-    from repro_torch.kernels.decode_attn import ops as dops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    beside its bound, its plain version and a library yardstick; dense
+    decode also at split and tile boundaries (each record gives the
+    wrapper's split plan)."""
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
@@ -754,55 +770,28 @@ def phase_dense_kernels(torch):
         emit(rec)
         del q, k, v, out
     # dense decode over the rollout's cache length, lengths 1 .. L
-    L = DECODE_L
-    kc, vc = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
-              .to(torch.bfloat16) for _ in range(2))
-    lengths = torch.randint(1, L + 1, (B,), generator=g,
-                            device="cuda").to(torch.int32)
-    lengths[0], lengths[1] = L, 1
-    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
-    out = dops.decode_attention_op(q, kc, vc, lengths)
-    q32, k32, v32 = q.float(), kc.float(), vc.float()
-    rec = {"phase": "kernel", "name": "decode_attention",
-           "dtype": "bfloat16", "shape": {"B": B, "H": H, "KV": KV, "hd": hd,
-                                          "L": L, "keys": int(lengths.sum())}}
-    _hold(torch, rec, out, decode_attention_ref(q32, k32, v32, lengths), tol,
-          {"lengths_minus_one": decode_attention_ref(q32, k32, v32,
-                                                     lengths - 1)})
-    n_keys = int(lengths.sum())
-    nbytes = 2 * (2 * q.numel() + 2 * n_keys * KV * hd) + 4 * B
-    flops = 4 * H * hd * n_keys
-    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(L, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    rec.update(_times(
-        torch, timer, "bfloat16", nbytes, flops,
-        lambda: dops.decode_attention_op(q, kc, vc, lengths),
-        lambda: decode_attention_ref(q, kc, vc, lengths),
-        lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
-        iters=50))
+    rec = _dense_decode_case(torch, timer, g, B=B, H=H, KV=KV, L=DECODE_L)
     results["decode_attention"] = rec
     emit(rec)
+    for case in _dense_boundary_cases(torch):
+        emit(_dense_decode_case(torch, None, g, **case))
     for G in (12, 48):
-        for rec in _dense_group_cases(torch, timer, g, G):
-            emit(rec)
+        emit(_flash_group_case(torch, timer, g, G))
+        emit(_dense_decode_case(torch, timer, g, B=B, H=G, KV=1, L=DECODE_L,
+                                label=f"group_{G}"))
     return results
 
 
-def _dense_group_cases(torch, timer, g, G):
-    """Flash attention (B 4, S 1024) and dense decode (B 16, L 1056) at a
-    group of G query heads over one KV head (command-r-plus's 12,
-    granite-34b's 48), hd 128, bf16, against their plain versions with the
-    wrong references of the main shapes, timed beside bound, plain version
-    and SDPA."""
-    from repro_torch.kernels.decode_attn import ops as dops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+def _flash_group_case(torch, timer, g, G):
+    """Flash attention (B 4, S 1024) at a group of G query heads over one
+    KV head (command-r-plus's 12, granite-34b's 48), hd 128, bf16, against
+    its plain version with the wrong reference of the main shape, timed
+    beside bound, plain version and SDPA."""
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     F = torch.nn.functional
     tol = TOL["bfloat16"]
-    B, S, hd, L = 4, FLASH_SHAPE["S"], FLASH_SHAPE["hd"], DECODE_L
+    B, S, hd = 4, FLASH_SHAPE["S"], FLASH_SHAPE["hd"]
     q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
                .to(torch.bfloat16).transpose(1, 2) for n in (G, 1, 1))
     out = fops.flash_attention(q, k, v)
@@ -823,36 +812,103 @@ def _dense_group_cases(torch, timer, g, G):
                                                enable_gqa=True),
         iters=10, plain_iters=3))
     rec["tflop_s"] = flops / (rec["ms"] * 1e-3) / 1e12
-    del q, k, v, qc, kc, vc, out
-    B = FLASH_SHAPE["B"]
-    kc, vc = (torch.randn(B, L, 1, hd, generator=g, device="cuda")
+    return rec
+
+
+def _dense_splits(torch, B, KV, L, n_sm=None):
+    """The dense decode wrapper's split plan for these sizes (bf16)."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn import paged_kernel
+    if n_sm is None:
+        n_sm = paged_kernel.sm_count(torch.cuda.current_device())
+    sk, n = dk.split_plan(B, KV, L, n_sm)
+    return {"split_keys": sk, "n_splits": n, "n_sm": n_sm}
+
+
+def _dense_boundary_cases(torch, n_sm=None):
+    """Dense decode at the rollout's heads (B 16, H 12, KV 2) with lengths
+    on the wrapper's split boundaries (split length sk), on 16-key tile
+    boundaries and one key past them, at L 1056 and at L 1000 (not a
+    multiple of the tile: the last tile is cut by the cache's end), with a
+    wrong reference one key short at the row one key past a split
+    boundary. ``n_sm``: the SM count the boundaries are placed for (the
+    card's by default)."""
+    cases = []
+    for L in (DECODE_L, 1000):
+        sk = _dense_splits(torch, 16, 2, L, n_sm)["split_keys"]
+        last = (L - 1) // sk * sk  # the first key of the last split
+        lengths = [L, sk + 1, sk, sk - 1, 2 * sk + 1, 16, 17, 1, L - 1,
+                   last + 1, last, 15, 33, 2 * sk, 3 * sk - 1, L // 2]
+        cases.append(dict(B=16, H=12, KV=2, L=L, lengths=lengths,
+                          label=f"split_boundaries_L{L}",
+                          short_rows={"one_key_short_past_a_split": 1}))
+    return cases
+
+
+def _dense_decode_case(torch, timer, g, *, B, H, KV, L, lengths=None,
+                       label=None, short_rows=None):
+    """Dense decode in bf16 (hd 128; lengths None: random in 1 .. L with
+    rows 0 and 1 at L and 1) against its plain version in float32 on the
+    same values within 1e-4 + 1e-2 |ref|, which wrong references must
+    fail: lengths - 1 at every row, one key short at the longest row, and
+    one key short at each row of ``short_rows``. Timed (``timer`` not
+    None) beside its bound, its plain version and SDPA over the cache."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    F = torch.nn.functional
+    hd = FLASH_SHAPE["hd"]
+    kc, vc = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
               .to(torch.bfloat16) for _ in range(2))
-    lengths = torch.randint(1, L + 1, (B,), generator=g,
-                            device="cuda").to(torch.int32)
-    lengths[0], lengths[1] = L, 1
-    q = torch.randn(B, G, hd, generator=g, device="cuda").to(torch.bfloat16)
+    if lengths is None:
+        lengths = torch.randint(1, L + 1, (B,), generator=g,
+                                device="cuda").to(torch.int32)
+        lengths[0], lengths[1] = L, 1
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
     out = dops.decode_attention_op(q, kc, vc, lengths)
+    launched = dops.DENSE_PLAN  # the split plan the wrapper launched
     q32, k32, v32 = q.float(), kc.float(), vc.float()
+
+    def dref(ls):
+        return decode_attention_ref(q32, k32, v32, ls)
+
+    wrong = {"lengths_minus_one": dref(lengths - 1)}
+    for name, row in dict({"one_key_short": int(torch.argmax(lengths))},
+                          **(short_rows or {})).items():
+        ls = lengths.clone()
+        ls[row] -= 1
+        wrong[name] = dref(ls)
     n_keys = int(lengths.sum())
-    dec = {"phase": "kernel", "name": "decode_attention",
-           "case": f"group_{G}", "dtype": "bfloat16",
-           "shape": {"B": B, "H": G, "KV": 1, "hd": hd, "L": L,
-                     "keys": n_keys}}
-    _hold(torch, dec, out, decode_attention_ref(q32, k32, v32, lengths), tol,
-          {"lengths_minus_one": decode_attention_ref(q32, k32, v32,
-                                                     lengths - 1)})
-    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(L, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    dec.update(_times(
-        torch, timer, "bfloat16",
-        2 * (2 * q.numel() + 2 * n_keys * hd) + 4 * B, 4 * G * hd * n_keys,
-        lambda: dops.decode_attention_op(q, kc, vc, lengths),
-        lambda: decode_attention_ref(q, kc, vc, lengths),
-        lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
-        iters=50))
-    return rec, dec
+    rec = {"phase": "kernel", "name": "decode_attention", "dtype": "bfloat16",
+           "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "L": L,
+                     "keys": n_keys},
+           "splits": {"split_keys": launched[0], "n_splits": launched[1]}}
+    want = _dense_splits(torch, B, KV, L)
+    if (want["split_keys"], want["n_splits"]) != launched:
+        # the boundary cases place their lengths on this plan
+        raise AssertionError(f"dense decode launched {launched}, "
+                             f"planned {want}")
+    rec["splits"]["n_sm"] = want["n_sm"]
+    if label:
+        rec["case"] = label
+        rec["lengths"] = lengths.tolist()
+    _hold(torch, rec, out, dref(lengths), TOL["bfloat16"], wrong)
+    if timer is not None:
+        kt = kc.transpose(1, 2).contiguous()
+        vt = vc.transpose(1, 2).contiguous()
+        mask = (torch.arange(L, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        rec.update(_times(
+            torch, timer, "bfloat16",
+            2 * (2 * q.numel() + 2 * n_keys * KV * hd) + 4 * B,
+            4 * H * hd * n_keys,
+            lambda: dops.decode_attention_op(q, kc, vc, lengths),
+            lambda: decode_attention_ref(q, kc, vc, lengths),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+            iters=50))
+    return rec
 
 
 def _hold(torch, rec, out, ref, tol, wrong_refs):
@@ -1108,9 +1164,10 @@ def phase_engine(torch):
 def _device_profile(torch, run):
     """torch.profiler over ``run()`` (which returns its wall seconds):
     device time by kernel name and the device's idle share of the wall
-    time. Only events that ran on the device count (the CPU ops that
-    launched them carry the same time again), and busy time is the union
-    of their intervals."""
+    time, the twelve largest names and every kernel of the port's own (a
+    ``__global__`` function of ``kernels/csrc``). Only events that ran on
+    the device count (the CPU ops that launched them carry the same time
+    again), and busy time is the union of their intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1139,7 +1196,27 @@ def _device_profile(torch, run):
             "top_device_kernels": [
                 {"name": k[:90], "device_ms": us / 1e3, "calls": n,
                  "share_of_busy": us / busy_us}
-                for us, k, n in rows[:12]]}
+                for us, k, n in rows[:12]],
+            "port_kernels": [
+                {"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                for us, k, n in rows if _is_port_kernel(k)]}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_kernel_names():
+    """The ``__global__`` functions of the port's CUDA sources."""
+    from repro_torch.kernels import _build
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+    return frozenset(m for path in _build.sources().values()
+                     for m in pat.findall(path.read_text()))
+
+
+def _is_port_kernel(name):
+    """Whether a profiled kernel name is one of the port's kernels (they
+    all live in their sources' anonymous namespaces)."""
+    return any(re.search(rf"\(anonymous namespace\)::(\w+::)?{k}[<(]", name)
+               for k in _port_kernel_names())
 
 
 def phase_profile(torch, cfg, params, prompts):
@@ -1170,6 +1247,8 @@ def _all_counts():
             "token_logprob_entropy": lops.LAUNCHES["forward"],
             "token_logprob_entropy_wgmma": lops.LAUNCHES["forward_wgmma"],
             "token_logprob_entropy_bwd": lops.LAUNCHES["backward"],
+            "token_logprob_entropy_bwd_wgmma": lops.LAUNCHES[
+                "backward_wgmma"],
             "flash_attention": fops.LAUNCHES,
             "decode_attention": dops.DENSE_LAUNCHES,
             "ssd_decode_step": sops.LAUNCHES["ssd_decode_step"],
@@ -1319,58 +1398,149 @@ def phase_training_kernels(torch):
             main = (h, emb, t)
         emit(rec)
 
-    # ---- backward: dh, dw against autograd of the plain version at T 512
+    # ---- backward at the step's shapes (T 2300: chunks of 1024, 1024 and
+    # 252): dh, dw of the kernel path against the plain float32 backward on
+    # the same h, w, logz, mu and cotangents, with a wrong reference (the
+    # entropy's cotangent dropped) that must fail. Then through autograd at
+    # T 512 (one chunk) against autograd of the plain version; the
+    # cotangent kernel's dl against its plain version; dh, dw from dl's
+    # bf16 high parts alone, recorded beside
     h, emb, t = main
+    w = emb.T
+    t32 = t.to(torch.int32)
+    rtol = LOGPROB_BWD_RTOL["bfloat16"]
+    rec = {"phase": "kernel", "name": "token_logprob_entropy_bwd",
+           "dtype": "bfloat16", "shape": {"T": TRAIN_T, "d": d, "V": V},
+           "backward_kernel": "wgmma" if lops.takes_wgmma(h, w)
+           else "wmma/fma"}
+    with torch.no_grad():
+        _, _, logz, mu = lops._forward_kernel(h, w, t32)
+        gl, ge = torch.randn(2, TRAIN_T, generator=g, device="cuda")
+        c0 = dict(lops.LAUNCHES)
+        dh, dw = lops._backward_kernel(h, w, t32, logz, mu, gl, ge, True,
+                                       True)
+        rec["chunks"] = {k: lops.LAUNCHES[k] - c0[k]
+                         for k in ("backward", "backward_wgmma")}
+        if rec["chunks"]["backward_wgmma"] != -(-TRAIN_T // lops.CHUNK):
+            raise AssertionError(f"logprob backward chunks: {rec}")
+        h32, w32 = h.float(), w.float()
+        ref = token_logprob_entropy_bwd_ref(h32, w32, t32, logz, mu, gl, ge)
+        bad = token_logprob_entropy_bwd_ref(h32, w32, t32, logz, mu, gl,
+                                            None)
+        del h32, w32
+    for label, out, r, wr in (("dh", dh, ref[0], bad[0]),
+                              ("dw", dw, ref[1], bad[1])):
+        sub = {"name": f"token_logprob_entropy_bwd.{label}"}
+        _hold(torch, sub, out, r,
+              {"rtol": rtol, "atol": 1e-5 * r.abs().max().item()},
+              {"entropy_cotangent_dropped": wr})
+        rec[label] = sub
+    rec["max_abs_err"] = max(rec[k]["max_abs_err"] for k in ("dh", "dw"))
+    del dh, dw, ref, bad
     n = 512
-    gl, ge = torch.randn(2, n, generator=g, device="cuda")
+    gn, gen = torch.randn(2, n, generator=g, device="cuda")
     hk = h[:n].clone().requires_grad_(True)
     ek = emb.clone().requires_grad_(True)
-    lp, en = lops.token_logprob_entropy(hk, ek.T, t[:n])
-    ((lp * gl).sum() + (en * ge).sum()).backward()
-    h32 = h[:n].float().requires_grad_(True)
-    e32 = emb.float().requires_grad_(True)
-    lp_r, en_r = token_logprob_entropy_ref(h32, e32.T, t[:n])
-    ((lp_r * gl).sum() + (en_r * ge).sum()).backward()
-    rec = {"phase": "kernel", "name": "token_logprob_entropy_bwd",
-           "dtype": "bfloat16", "shape": {"T": n, "d": d, "V": V}}
-    rtol = LOGPROB_BWD_RTOL["bfloat16"]
-    errs = {}
-    for label, out, ref in (("dh", hk.grad, h32.grad), ("dw", ek.grad,
-                                                        e32.grad)):
-        sub = {"name": f"token_logprob_entropy_bwd.{label}"}
-        _hold(torch, sub, out, ref,
-              {"rtol": rtol, "atol": 1e-5 * ref.abs().max().item()}, {})
-        rec[label] = sub
-        errs[label] = sub["max_abs_err"]
-    rec["max_abs_err"] = max(errs.values())
-    del hk, ek, h32, e32, lp, en, lp_r, en_r
-    # timed at the step's shapes (T 2300): the kernel's logit recompute in
-    # bf16 and the two float32 gradient products
+    lpk, enk = lops.token_logprob_entropy(hk, ek.T, t[:n])
+    ((lpk * gn).sum() + (enk * gen).sum()).backward()
+    refs, wrong = _logprob_grads(torch, h[:n].float(), emb.float(), t[:n],
+                                 gn, gen)
+    auto = {"T": n}
+    for label, out in (("dh", hk.grad), ("dw", ek.grad)):
+        r = refs[label]
+        sub = {"name": f"token_logprob_entropy_bwd.autograd.{label}"}
+        _hold(torch, sub, out, r,
+              {"rtol": rtol, "atol": 1e-5 * r.abs().max().item()},
+              {"entropy_cotangent_dropped": wrong[label]})
+        auto[label] = sub
+    rec["autograd"] = auto
+    rec.update(_dl_parts_check(torch, h[:n], emb, t[:n], gn, gen, refs,
+                               rtol))
+    del hk, ek, lpk, enk, refs, wrong
+    # timed on the same inputs. The work is three products of 2 T d V
+    # flops (the kernel's logit recompute, dh, dw): the bound takes them at
+    # the tensor-core rate, against the bytes of h, w, the five [T] float32
+    # inputs (targets, logz, mu and the two cotangents) and the outputs dh,
+    # dw
     with torch.no_grad():
-        lp, en, logz, mu = lops._forward_kernel(h, emb.T, t.to(torch.int32))
-        gl, ge = torch.randn(2, TRAIN_T, generator=g, device="cuda")
-        t32 = t.to(torch.int32)
-        flops_bf16 = 2 * TRAIN_T * d * V
-        t_ops = (flops_bf16 / PEAK_FLOPS["bfloat16"]
-                 + 2 * flops_bf16 / PEAK_FLOPS["float32"]) * 1e3
+        flops = 3 * 2 * TRAIN_T * d * V
         nbytes = (TRAIN_T * d * 2 + d * V * 2 + TRAIN_T * 4 * 5
                   + TRAIN_T * d * 2 + d * V * 2)
+
+        def kernel():
+            return lops._backward_kernel(h, w, t32, logz, mu, gl, ge, True,
+                                         True)
         times = _times(
-            torch, timer, "bfloat16", nbytes, 0,
-            lambda: lops._backward_kernel(h, emb.T, t32, logz, mu, gl, ge,
-                                          True, True),
-            lambda: token_logprob_entropy_bwd_ref(h, emb.T, t32, logz, mu,
-                                                  gl, ge),
+            torch, timer, "bfloat16", nbytes, flops, kernel,
+            lambda: token_logprob_entropy_bwd_ref(h, w, t32, logz, mu, gl,
+                                                  ge),
             None, iters=5, plain_iters=2)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    times.update(bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 flops={"bfloat16": flops_bf16, "float32": 2 * flops_bf16},
-                 timed_T=TRAIN_T)
+        # device memory the call takes above its inputs, at its peak
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernel()
+        torch.cuda.synchronize()
+        times["peak_mem_gb_above_inputs"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
     rec.update(times)
     results["token_logprob_entropy_bwd"] = rec
     emit(rec)
     return results
+
+
+def _logprob_grads(torch, h32, e32, t, gl, ge):
+    """(dh, dw) of the plain token logprob + entropy in float32 (w = e32.T,
+    the tied head) under cotangents (gl, ge), by autograd, and the same
+    with the entropy's cotangent dropped (a backward that ignored it)."""
+    from repro_torch.kernels.logprob.ref import token_logprob_entropy_ref
+    out = []
+    for g_ent in (ge, torch.zeros_like(ge)):
+        hh = h32.clone().requires_grad_(True)
+        ee = e32.clone().requires_grad_(True)
+        lp, en = token_logprob_entropy_ref(hh, ee.T, t)
+        ((lp * gl).sum() + (en * g_ent).sum()).backward()
+        out.append({"dh": hh.grad, "dw": ee.grad})
+    return out
+
+
+def _dl_parts_check(torch, h, emb, t, gl, ge, refs, rtol):
+    """The wgmma cotangent kernel's dl (bf16 high parts and remainders)
+    against its plain version, the float32 dl of the plain logits split by
+    ``split_hi_lo``, held within 1e-4 max|dl| as the value the parts carry
+    (the logits differ by float32 summation order); then dh and dw from the
+    high parts alone, held to the backward's tolerance but only recorded
+    (the route keeps both parts)."""
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.logprob.ref import dlogits_ref, split_hi_lo
+    n = h.shape[0]
+    w = emb.T
+    V = w.shape[1]
+    t32 = t.to(torch.int32)
+    with torch.no_grad():
+        _, _, logz, mu = lops._forward_kernel(h, w, t32)
+        dl = lops.dlogits_parts(h, w, t32, logz, mu, gl, ge, 0, n)
+        hi, lo = dl[:n, :V], dl[n:, :V]
+        dl32 = dlogits_ref(h.float() @ w.float(), t32, logz, mu, gl, ge)
+        got = hi.double() + lo.double()
+        err = (got - dl32.double()).abs()
+        scale = dl32.abs().max().item()
+        sub = {"max_abs_err": err.max().item(), "max_abs_dl": scale,
+               "hi_equal_share": (hi == split_hi_lo(dl32)[0]).float().mean()
+               .item()}
+        if not bool(torch.isfinite(got).all()) \
+                or sub["max_abs_err"] > 1e-4 * scale:
+            raise AssertionError(f"dlogits_wgmma vs plain: {sub}")
+        del dl32, got, err
+        hi_only = {"dh": torch.mm(hi, emb, out_dtype=torch.float32),
+                   "dw": torch.mm(h.T, hi, out_dtype=torch.float32).T}
+    ratios = {}
+    for k, out in hi_only.items():
+        ref = refs[k]
+        e = (out.to(torch.bfloat16).float() - ref).abs()
+        ratios[k] = (e / (1e-5 * ref.abs().max().item()
+                          + rtol * ref.abs())).max().item()
+    return {"dl": sub, "hi_only_worst_err_over_tol": ratios}
 
 
 # ------------------------------------------------------------------ training
@@ -1497,11 +1667,14 @@ def phase_training(torch):
     if min(launches[k] for k in train_kernels) <= 0:
         raise AssertionError(f"a training kernel was not launched: "
                              f"{launches}")
-    # the bf16 step's logprob forwards all took the TMA + wgmma kernel
+    # the bf16 step's logprob forwards and backwards all took the TMA +
+    # wgmma kernels
     if launches["token_logprob_entropy_wgmma"] \
-            != launches["token_logprob_entropy"]:
-        raise AssertionError(f"a bf16 logprob forward missed the wgmma "
-                             f"kernel: {launches}")
+            != launches["token_logprob_entropy"] \
+            or launches["token_logprob_entropy_bwd_wgmma"] \
+            != launches["token_logprob_entropy_bwd"]:
+        raise AssertionError(f"a bf16 logprob pass missed the wgmma "
+                             f"kernels: {launches}")
     del state, new
 
     # step 2 again from copies of the state before it, a3po and recompute
@@ -2135,7 +2308,9 @@ def phase_training_f32(torch):
         s_p, m_p = Trainer(cfg, rl, "a3po").step(clone, batch)
     if _all_counts() != kernel_launches or \
             kernel_launches["a3po_loss"] == 0 or \
-            kernel_launches["token_logprob_entropy"] == 0:
+            kernel_launches["token_logprob_entropy"] == 0 or \
+            kernel_launches["token_logprob_entropy_bwd"] == 0 or \
+            kernel_launches["token_logprob_entropy_bwd_wgmma"] != 0:
         raise AssertionError(f"kernel / plain step launches: "
                              f"{kernel_launches} then {_all_counts()}")
     _check_metrics(np, m_k, METRIC_KEYS)
@@ -2551,9 +2726,16 @@ def main() -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
                      "shape": k.get("shape")})
-        if name == "token_logprob_entropy":
-            line[-1]["wgmma_launches"] = launches[
-                "token_logprob_entropy_wgmma"]
+        wgmma = {"token_logprob_entropy": "token_logprob_entropy_wgmma",
+                 "token_logprob_entropy_bwd":
+                 "token_logprob_entropy_bwd_wgmma"}.get(name)
+        if wgmma:
+            line[-1]["wgmma_launches"] = launches[wgmma]
+        if name == "token_logprob_entropy_bwd":
+            line[-1]["peak_mem_gb_above_inputs"] = k[
+                "peak_mem_gb_above_inputs"]
+        if "splits" in k:
+            line[-1]["splits"] = k["splits"]
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,82 +1,59 @@
 // Single-token (decode) attention over a dense KV cache, for Hopper
-// (sm_90a).
+// (sm_90a), split over the keys ("flash-decoding").
 //
 // Replaces: src/repro/kernels/decode_attn/kernel.py, decode_attention_pallas
 //   (the Pallas TPU kernel).
 //   q [B,H,hd]; k_cache, v_cache [B,L,KV,hd]; lengths [B] int32 valid-key
 //   counts -> out [B,H,hd] in q's dtype. Head h reads KV head h / G
-//   (G = H / KV); keys at positions >= lengths[b] are masked. Scale
-//   hd**-0.5, float32 scores and online softmax, 1e-30 floor on the row
-//   sum. A row with no keys (length 0) writes 0; the Pallas kernel averages
-//   V over the masked cache there. The rollout engine never passes 0.
+//   (G = H / KV, any G); keys at positions >= lengths[b] are masked. Scale
+//   hd**-0.5, float32 scores and online softmax. A row with no keys
+//   (length 0) writes 0; the Pallas kernel averages V over the masked cache
+//   there. The rollout engine never passes 0.
 //
 // What bounds it: bytes. Each generated token reads every sequence's
 //   resident K and V once per layer (2 * lengths * KV * hd * elem bytes)
 //   against about 4 flops per byte pair, far below the card's ~295
-//   flop/byte balance point: the floor is the K/V bytes over HBM bandwidth.
+//   flop/byte balance point: the floor is the K/V bytes over HBM bandwidth,
+//   a few microseconds at the rollout's sizes (B 16, KV 2, L 1056), so what
+//   bounds a real kernel is latency: loads in flight, and the blocks that
+//   carry them.
 //
-// What the design does about it: one block per (sequence, KV head, chunk
-//   of at most 8 of its query heads) serves the chunk's heads, so each key
-//   and value row is read from device memory once per chunk, not once per
-//   head, and any group size G = H / KV is taken (a group of 6 is one
-//   chunk, 48 is six). The block reads
-//   only the first lengths[b] keys (the TPU kernel streams the whole cache
-//   and masks). Its 8 warps take interleaved chunks of 32 keys: for scores
-//   a lane owns one key and reads its whole row in 16-byte vectors against
-//   the group's queries in shared memory; for the value sum a lane owns
-//   hd/32 dimensions and walks the chunk's rows, so each row read is one
-//   coalesced 256-byte load per warp. Each warp keeps its own running max,
-//   sum and accumulator in registers (float32); the warps merge at the end
-//   through shared memory. Not done yet (later work): split-K across
-//   blocks when B * KV is far below the 132 SMs, deeper load pipelining.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What the design does about it (bf16): the split-KV walk that paged decode
+//   runs (decode_split.cuh), instantiated with DenseKeys, so the key at
+//   position j of row b is row (b * L + j) * KV + kv of the cache.
+//   - kernel.split_plan cuts L into at most 8 splits of whole 16-key tiles
+//     from B, KV, L and the SM count only (never the lengths, which the
+//     decode loop must not read on the host). Without splits a row's keys
+//     are one block's work: at the rollout's B 16, KV 2 that is 32 blocks
+//     on 132 SMs; with them, 8 splits x 2 x 16 = 256 blocks. A block whose
+//     split starts at or past its row's length exits at once; a tile that
+//     reaches past the length is zero-filled and masked, so any L is taken.
+//   - each warp keeps its next key tiles in flight through a cp.async ring;
+//     both products run on mma.sync m16n8k16 (q in registers, P split into
+//     bf16 hi and lo parts), softmax state and accumulator in float32;
+//   - a row's splits merge in a thread-block cluster through distributed
+//     shared memory, in split order: no partial in device memory, one
+//     launch.
+//   What holds it back: a split of 144 keys gives each warp two or three
+//   16-key tiles, so the ring never reaches a steady state, and the fixed
+//   part (the cluster's two barriers, q's cold load, the merge) is a large
+//   share of each block's time. ptxas: 129 registers (hd 128) and 83
+//   (hd 64), no spill.
+//
+// float32 keeps the first design (namespace simple): one block per (row,
+//   KV head, chunk of at most 8 of its query heads); 8 warps take
+//   interleaved chunks of 32 keys, a lane owns one key for the scores and
+//   hd/32 dimensions for the value sum, exact float32 FMAs; the warps merge
+//   in shared memory. The dispatch is on dtype in decode_attention below.
+#include "decode_split.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+namespace simple {
 
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
 constexpr int MAX_G = 8;  // query heads per block (a chunk of the group)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// n consecutive elements at p (16-byte aligned) as float
-template <typename T, int N>
-__device__ __forceinline__ void load_f(const T* p, float* out) {
-  if constexpr (sizeof(T) == 2) {
-    static_assert(N % 8 == 0, "bf16 vectors of 8");
-#pragma unroll
-    for (int c = 0; c < N; c += 8) {
-      uint4 x = *reinterpret_cast<const uint4*>(p + c);
-      const bf16* h = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) out[c + e] = __bfloat162float(h[e]);
-    }
-  } else {
-    static_assert(N % 4 == 0, "float vectors of 4");
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      float4 x = *reinterpret_cast<const float4*>(p + c);
-      out[c] = x.x;
-      out[c + 1] = x.y;
-      out[c + 2] = x.z;
-      out[c + 3] = x.w;
-    }
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -90,13 +67,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
-            const T* __restrict__ vc, const int* __restrict__ lengths,
-            T* __restrict__ out, int H, int KV, int L, float scale) {
-  constexpr int DPL = HD / 32;       // value dimensions per lane
-  constexpr int KCH = sizeof(T) == 2 ? 32 : 16;  // key dims per load step
+decode_attn(const float* __restrict__ q, const float* __restrict__ kc,
+            const float* __restrict__ vc, const int* __restrict__ lengths,
+            float* __restrict__ out, int H, int KV, int L, float scale) {
+  constexpr int DPL = HD / 32;  // value dimensions per lane
+  constexpr int KCH = 16;       // key dims per load step
   const int b = blockIdx.x;
   const int Gq = H / KV, n_hc = (Gq + MAX_G - 1) / MAX_G;
   const int kvh = blockIdx.y / n_hc, g0 = (blockIdx.y % n_hc) * MAX_G;
@@ -112,13 +89,13 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (int i = tid; i < G * HD; i += NT) {
     const int g = i / HD, d = i % HD;
-    q_s[g][d] = to_f(q[((size_t)b * H + h0 + g) * HD + d]);
+    q_s[g][d] = q[((size_t)b * H + h0 + g) * HD + d];
   }
   __syncthreads();
 
   const size_t row = (size_t)KV * HD;  // elements between positions
-  const T* kbase = kc + (size_t)b * L * row + (size_t)kvh * HD;
-  const T* vbase = vc + (size_t)b * L * row + (size_t)kvh * HD;
+  const float* kbase = kc + (size_t)b * L * row + (size_t)kvh * HD;
+  const float* vbase = vc + (size_t)b * L * row + (size_t)kvh * HD;
 
   float m[MAX_G], l[MAX_G], acc[MAX_G][DPL];
 #pragma unroll
@@ -137,11 +114,18 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) s[g] = 0.0f;
     if (valid) {
-      const T* kr = kbase + (size_t)j * row;
+      const float* kr = kbase + (size_t)j * row;
 #pragma unroll
       for (int d0 = 0; d0 < HD; d0 += KCH) {
         float kf[KCH];
-        load_f<T, KCH>(kr + d0, kf);
+#pragma unroll
+        for (int c = 0; c < KCH; c += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(kr + d0 + c);
+          kf[c] = x.x;
+          kf[c + 1] = x.y;
+          kf[c + 2] = x.z;
+          kf[c + 3] = x.w;
+        }
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g) {
           if (g < G) {
@@ -180,17 +164,10 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
     // values: lane owns dimensions lane * DPL .. + DPL
     const int nk = min(32, len - c0);
     for (int jj = 0; jj < nk; ++jj) {
+      const float* vr = vbase + (size_t)(c0 + jj) * row + lane * DPL;
       float vf[DPL];
-      const T* vr = vbase + (size_t)(c0 + jj) * row + lane * DPL;
-      if constexpr (sizeof(T) == 2 && DPL == 4) {
-        uint2 x = *reinterpret_cast<const uint2*>(vr);
-        const bf16* h = reinterpret_cast<const bf16*>(&x);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) vf[e] = __bfloat162float(h[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) vf[e] = to_f(vr[e]);
-      }
+      for (int e = 0; e < DPL; ++e) vf[e] = vr[e];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
         if (g < G) {
@@ -232,40 +209,52 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ kc,
         }
       }
     }
-    out[((size_t)b * H + h0 + g) * HD + d] =
-        from_f<T>(num / fmaxf(den, 1e-30f));
+    out[((size_t)b * H + h0 + g) * HD + d] = num / fmaxf(den, 1e-30f);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* lengths, void* out, int B, int H, int KV,
                    int L, cudaStream_t stream) {
   dim3 grid(B, KV * ((H / KV + MAX_G - 1) / MAX_G));
-  decode_attn<T, HD><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(lengths),
-      static_cast<T*>(out), H, KV, L, 1.0f / sqrtf((float)HD));
+  decode_attn<HD><<<grid, NT, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const int*>(lengths),
+      static_cast<float*>(out), H, KV, L, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
+}  // namespace simple
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; H % KV == 0 (any
-// group size); every operand contiguous.
+// dtype: 0 = float32 (the first design; split_keys and n_splits unread),
+// 1 = bfloat16 (the split-KV walk: split_keys * n_splits >= L, n_splits <=
+// kMaxSplits, the portable cluster size); hd in {64, 128}; H % KV == 0
+// (any group size); every operand contiguous, q and the caches 16-byte
+// aligned; the caller checks.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths,
                                 void* out, int B, int H, int KV, int L,
-                                int hd, int dtype, void* stream) {
+                                int hd, int split_keys, int n_splits,
+                                int dtype, void* stream) {
   if (B <= 0 || L <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DECODE_LAUNCH(T, HD) \
-  return (int)launch<T, HD>(q, k_cache, v_cache, lengths, out, B, H, KV, L, st)
-  if (dtype == 0 && hd == 64) DECODE_LAUNCH(float, 64);
-  if (dtype == 0 && hd == 128) DECODE_LAUNCH(float, 128);
-  if (dtype == 1 && hd == 64) DECODE_LAUNCH(bf16, 64);
-  if (dtype == 1 && hd == 128) DECODE_LAUNCH(bf16, 128);
-#undef DECODE_LAUNCH
+  if (dtype == 0 && hd == 64)
+    return (int)simple::launch<64>(q, k_cache, v_cache, lengths, out, B, H,
+                                   KV, L, st);
+  if (dtype == 0 && hd == 128)
+    return (int)simple::launch<128>(q, k_cache, v_cache, lengths, out, B, H,
+                                    KV, L, st);
+  if (dtype != 1 || split_keys <= 0 || n_splits <= 0 ||
+      n_splits > kMaxSplits || (long long)split_keys * n_splits < L)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k_cache, v_cache, nullptr, static_cast<const int*>(lengths),
+         out, H, KV, 0, 0, 0, L, split_keys, n_splits, 1,
+         kLog2e / sqrtf((float)hd)};
+  if (hd == 64) return (int)launch_bf16<64, DenseKeys>(a, B, st);
+  if (hd == 128) return (int)launch_bf16<128, DenseKeys>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,10 +8,10 @@
 //   hidden [T,d], w [d,V] (any two strides, one of them 1: the tied
 //   embedding's transposed view [V,d] is read in place), targets [T] int32.
 //   Forward -> logp, entropy, logz, mean logit, float32 [T].
-//   Backward -> dl [T,V] float32 for one chunk of tokens,
+//   Backward -> dl [T,V] for one chunk of tokens,
 //     dl_j = g_logp*(1[j=t] - p_j) - g_ent*p_j*(l_j - mu),
 //   from which the caller forms dh = dl w^T and dw = h^T dl with two
-//   float32 library products.
+//   library products.
 //
 // What bounds it: operations. A pass computes 2*T*d*V flops of logits
 //   (1.07 TFLOP at T = 2300, d = 1536, V = 151,936, about 1.09 ms at the
@@ -19,11 +19,14 @@
 //   card's ~295 flop/byte balance point. The logits never reach device
 //   memory in the forward: a block folds each logit tile into four online
 //   per-row statistics (max, sum of exp, sum of exp*logit, target logit),
-//   and a second small pass merges the blocks' vocab ranges.
+//   and a second small pass merges the blocks' vocab ranges. The backward
+//   is three such products (this kernel's logit recompute, then dh and
+//   dw): 3.26 ms at the tensor-core rate at that shape.
 //
-// What the design does about it (the forward of bf16 operands whose rows
-//   are 16-byte aligned, namespace wg): the tensor cores at their full rate
-//   through wgmma, fed by TMA.
+// What the design does about it (bf16 operands whose rows are 16-byte
+//   aligned, namespace wg): the tensor cores at their full rate through
+//   wgmma, fed by TMA, for both directions; one kernel (walk) with the
+//   forward's and the backward's epilogues as a template parameter.
 //   - One block of three warpgroups per (128-token tile, vocab range); the
 //     grid runs the token tiles of a range side by side, so that w streams
 //     from device memory about once and is reread from L2 (h, 7 MB at the
@@ -41,15 +44,30 @@
 //     while the next stage is awaited. Products of bf16 values are exact
 //     in float32, so this is the reference's float32 upcast up to
 //     summation order.
-//   - Epilogue in registers: each thread holds 2 rows x 32 columns of the
-//     tile; the row maximum by quad shuffles, then one FFMA and one ex2 a
-//     logit for the sums, no shared-memory logit tile.
-// Other operands (float32, or bf16 rows not 16-byte aligned) and the
-//   backward take the first design (namespace-level kernels below): a block
-//   owns 64 tokens and a contiguous range of 128-entry vocab tiles,
-//   computes each tile with wmma 16x16x16 (bf16) or float32 FMAs through a
-//   shared-memory logit tile; the backward recomputes each tile and writes
-//   the float32 cotangent tile. Masked edges as above.
+//   - Forward epilogue (Stats) in registers: each thread holds 2 rows x 32
+//     columns of the tile; the row maximum by quad shuffles, then one FFMA
+//     and one ex2 a logit for the sums, no shared-memory logit tile.
+//   - Backward epilogue (Cotangent): dl from the saved logz and mu in
+//     registers (one FFMA and one ex2 for p), stored as a bf16 high part
+//     and the bf16 rounding of the remainder, two planes of rows padded to
+//     a multiple of 8 entries: ~16 bits, the float32 dl to 2^-16, in half
+//     the bytes of a float32 dl. The caller's two gradient products then
+//     run on the tensor cores with bf16 operands (both parts at once,
+//     float32 accumulation): float32 products of a float32 dl would run on
+//     the CUDA cores at a fifteenth of that rate, on float32 copies of W
+//     and h.
+//   What still holds the backward back: the parts double the two products'
+//   work (5/3 of the bound's flops), dl makes a round trip through device
+//   memory (1.4 GB written and read twice at the step's shape), and each
+//   tile's epilogue leaves the tensor cores idle (one accumulator set: 168
+//   registers, the launch's limit for 384 threads, no spill).
+// Other operands (float32, or bf16 rows not 16-byte aligned) take the
+//   first design (namespace-level kernels below): a block owns 64 tokens
+//   and a contiguous range of 128-entry vocab tiles, computes each tile
+//   with wmma 16x16x16 (bf16) or float32 FMAs through a shared-memory
+//   logit tile; the backward recomputes each tile and writes the float32
+//   cotangent tile, and the caller's products run in float32. Masked edges
+//   as above.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -411,7 +429,10 @@ struct Smem {
 
 struct Params {
   const int* targets;
-  float* part;  // [4][splits][rows]
+  float* part;  // forward: [4][splits][rows]
+  const float *logz, *mu, *g_logp, *g_ent;  // backward (null g: zero)
+  bf16* dl;     // backward: [2][rows][ldv], the high parts then the low
+  long long ldv;
   int rows, V, d, n_tiles, tiles_per_split;
 };
 
@@ -549,11 +570,179 @@ __device__ __forceinline__ void tile_products(float (&acc)[64], int& kv,
   if (lane == 0) mbar_arrive(empty + 8 * ((kv - 1) % kStages));
 }
 
-// grid (token tile, vocab range); MN: w V-contiguous
-template <int MN>
+// The forward's epilogue: fold each tile into four running statistics of
+// the thread's rows a and b (the maximum, and the sums of exp and of exp *
+// logit relative to it, partial over this thread's columns; the target
+// logit, held by one thread of the row), written to part at the end.
+struct Stats {
+  int row_a, row_b, tgt_a, tgt_b, col0;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float s_a = 0.f, s_b = 0.f, lt_a = 0.f, lt_b = 0.f;
+
+  __device__ Stats(const Params& a, int row, int lane)
+      : row_a(row), row_b(row + 8), col0(2 * (lane % 4)) {
+    tgt_a = row_a < a.rows ? a.targets[row_a] : -1;
+    tgt_b = row_b < a.rows ? a.targets[row_b] : -1;
+  }
+
+  __device__ __forceinline__ void tile(float (&acc)[64], int n0,
+                                       const Params& a) {
+    if (n0 + BN > a.V) {  // the ragged last tile: columns past V are out
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if (n0 + 8 * (j / 4) + col0 + (j & 1) >= a.V) acc[j] = -INFINITY;
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 64; j += 4) {
+      mx_a = fmaxf(mx_a, fmaxf(acc[j], acc[j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(acc[j + 2], acc[j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);  // finite
+    const float corr_a = exp2f((m_a - mn_a) * kLog2e);  // 0 on the first
+    const float corr_b = exp2f((m_b - mn_b) * kLog2e);
+    m_a = mn_a;
+    m_b = mn_b;
+    const float na = -mn_a * kLog2e, nb = -mn_b * kLog2e;
+    float se_a = 0.f, se_b = 0.f, ss_a = 0.f, ss_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float x = acc[j];
+      const float e = exp2f(fmaf(x, kLog2e, (j & 2) ? nb : na));  // 0: masked
+      const float ex = e > 0.f ? e * x : 0.f;
+      if (j & 2) {
+        se_b += e;
+        ss_b += ex;
+      } else {
+        se_a += e;
+        ss_a += ex;
+      }
+    }
+    l_a = l_a * corr_a + se_a;
+    l_b = l_b * corr_b + se_b;
+    s_a = s_a * corr_a + ss_a;
+    s_b = s_b * corr_b + ss_b;
+    const int ca = tgt_a - n0, cb = tgt_b - n0;
+    if (ca >= 0 && ca < BN) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if (!(j & 2) && 8 * (j / 4) + col0 + (j & 1) == ca) lt_a = acc[j];
+    }
+    if (cb >= 0 && cb < BN) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        if ((j & 2) && 8 * (j / 4) + col0 + (j & 1) == cb) lt_b = acc[j];
+    }
+  }
+
+  __device__ __forceinline__ void finish(const Params& a, int split,
+                                         int lane) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+      lt_a += __shfl_xor_sync(0xffffffffu, lt_a, off);
+      lt_b += __shfl_xor_sync(0xffffffffu, lt_b, off);
+    }
+    if (lane % 4 == 0) {
+      const long long plane = (long long)gridDim.y * a.rows;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? row_b : row_a;
+        if (row >= a.rows) continue;
+        const long long at = (long long)split * a.rows + row;
+        a.part[at] = h ? m_b : m_a;
+        a.part[plane + at] = h ? l_b : l_a;
+        a.part[2 * plane + at] = h ? s_b : s_a;
+        a.part[3 * plane + at] = h ? lt_b : lt_a;
+      }
+    }
+  }
+};
+
+// (lo, hi) rounded to a bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t cvt_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// The backward's epilogue: the logit cotangent of each tile,
+//   dl_j = g_logp (1[j = t] - p_j) - g_ent p_j (l_j - mu),
+//        = 1[j = t] g_logp - p_j (g_logp + g_ent (l_j - mu)),
+// p_j = exp(l_j - logz) from the forward's saved logz and mu, stored as a
+// bf16 high part (plane 0 of dl) and the bf16 rounding of the remainder
+// (plane 1): together ~16 bits, the float32 value to a relative 2^-16.
+struct Cotangent {
+  int row_a, row_b, tgt_a, tgt_b, col0;
+  float nz_a = 0.f, nz_b = 0.f, mu_a = 0.f, mu_b = 0.f;
+  float gl_a = 0.f, gl_b = 0.f, ge_a = 0.f, ge_b = 0.f;
+
+  __device__ Cotangent(const Params& a, int row, int lane)
+      : row_a(row), row_b(row + 8), tgt_a(-1), tgt_b(-1),
+        col0(2 * (lane % 4)) {
+    if (row_a < a.rows) load(a, row_a, tgt_a, nz_a, mu_a, gl_a, ge_a);
+    if (row_b < a.rows) load(a, row_b, tgt_b, nz_b, mu_b, gl_b, ge_b);
+  }
+
+  __device__ static void load(const Params& a, int row, int& tgt, float& nz,
+                              float& mu, float& gl, float& ge) {
+    tgt = a.targets[row];
+    nz = -a.logz[row] * kLog2e;
+    mu = a.mu[row];
+    gl = a.g_logp ? a.g_logp[row] : 0.f;
+    ge = a.g_ent ? a.g_ent[row] : 0.f;
+  }
+
+  __device__ __forceinline__ void tile(float (&acc)[64], int n0,
+                                       const Params& a) {
+    const long long plane = (long long)a.rows * a.ldv;
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const bool b = j & 2;
+      const int row = b ? row_b : row_a, col = n0 + 8 * (j / 4) + col0;
+      const float nz = b ? nz_b : nz_a, mu = b ? mu_b : mu_a;
+      const float gl = b ? gl_b : gl_a, ge = b ? ge_b : ge_a;
+      const int tgt = b ? tgt_b : tgt_a;
+      float g[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float l = acc[j + e];
+        const float p = exp2f(fmaf(l, kLog2e, nz));
+        g[e] = (col + e == tgt ? gl : 0.f) - p * fmaf(ge, l - mu, gl);
+      }
+      // a pair of columns: 4-byte aligned since ldv is a multiple of 8; a
+      // column in [V, ldv) is never read
+      if (row < a.rows && col < a.V) {
+        const uint32_t hi = cvt_bf16x2(g[0], g[1]);
+        const uint32_t lo = cvt_bf16x2(g[0] - __uint_as_float(hi << 16),
+                                       g[1] - __uint_as_float(hi & 0xffff0000u));
+        uint32_t* dst =
+            reinterpret_cast<uint32_t*>(a.dl + (long long)row * a.ldv + col);
+        dst[0] = hi;
+        dst[plane / 2] = lo;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(const Params&, int, int) {}
+};
+
+// grid (token tile, vocab range); MN: w V-contiguous. One block walks its
+// range's vocab tiles: the producer warpgroup streams h and w through the
+// ring, and each consumer warpgroup hands its 64 x 128 logit tile to the
+// epilogue Epi (Stats: the forward; Cotangent: the backward's dl).
+template <int MN, class Epi>
 __global__ void __launch_bounds__(NT, 1)
-forward_partial(const __grid_constant__ CUtensorMap th,
-                const __grid_constant__ CUtensorMap tw, const Params a) {
+walk(const __grid_constant__ CUtensorMap th,
+     const __grid_constant__ CUtensorMap tw, const Params a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -608,99 +797,16 @@ forward_partial(const __grid_constant__ CUtensorMap th,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int c = wg - 1;
   const int tid = threadIdx.x - 128 * wg, warp = tid / 32, lane = tid % 32;
-  // accumulator rows of wgmma m64nN: row_a (registers j with j & 2 == 0)
-  // and row_b = row_a + 8; columns 8 (j / 4) + 2 (lane % 4) + (j & 1)
-  const int row_a = m0 + 64 * c + 16 * warp + lane / 4, row_b = row_a + 8;
-  const int tgt_a = row_a < a.rows ? a.targets[row_a] : -1;
-  const int tgt_b = row_b < a.rows ? a.targets[row_b] : -1;
-  const int col0 = 2 * (lane % 4);
-  // running statistics of rows a and b: the maximum, and the sums of exp
-  // and of exp * logit relative to it (partial over this thread's
-  // columns), the target logit (held by one thread of the row)
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float s_a = 0.f, s_b = 0.f, lt_a = 0.f, lt_b = 0.f;
-
+  // accumulator rows of wgmma m64nN: row a (registers j with j & 2 == 0)
+  // and row b = row a + 8; columns 8 (j / 4) + 2 (lane % 4) + (j & 1)
+  Epi epi(a, m0 + 64 * c + 16 * warp + lane / 4, lane);
   int kv = 0;
   for (int tile = t0; tile < t1; ++tile) {
     float acc[64];
     tile_products<MN>(acc, kv, KT, c, lane, sm_a, sm_b, full, empty);
-
-    // ---- epilogue: fold the tile into the rows' statistics
-    const int n0 = tile * BN;
-    if (n0 + BN > a.V) {  // the ragged last tile: columns past V are out
-#pragma unroll
-      for (int j = 0; j < 64; ++j)
-        if (n0 + 8 * (j / 4) + col0 + (j & 1) >= a.V) acc[j] = -INFINITY;
-    }
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 64; j += 4) {
-      mx_a = fmaxf(mx_a, fmaxf(acc[j], acc[j + 1]));
-      mx_b = fmaxf(mx_b, fmaxf(acc[j + 2], acc[j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);  // finite
-    const float corr_a = exp2f((m_a - mn_a) * kLog2e);  // 0 on the first
-    const float corr_b = exp2f((m_b - mn_b) * kLog2e);
-    m_a = mn_a;
-    m_b = mn_b;
-    const float na = -mn_a * kLog2e, nb = -mn_b * kLog2e;
-    float se_a = 0.f, se_b = 0.f, ss_a = 0.f, ss_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < 64; ++j) {
-      const float x = acc[j];
-      const float e = exp2f(fmaf(x, kLog2e, (j & 2) ? nb : na));  // 0: masked
-      const float ex = e > 0.f ? e * x : 0.f;
-      if (j & 2) {
-        se_b += e;
-        ss_b += ex;
-      } else {
-        se_a += e;
-        ss_a += ex;
-      }
-    }
-    l_a = l_a * corr_a + se_a;
-    l_b = l_b * corr_b + se_b;
-    s_a = s_a * corr_a + ss_a;
-    s_b = s_b * corr_b + ss_b;
-    const int ca = tgt_a - n0, cb = tgt_b - n0;
-    if (ca >= 0 && ca < BN) {
-#pragma unroll
-      for (int j = 0; j < 64; ++j)
-        if (!(j & 2) && 8 * (j / 4) + col0 + (j & 1) == ca) lt_a = acc[j];
-    }
-    if (cb >= 0 && cb < BN) {
-#pragma unroll
-      for (int j = 0; j < 64; ++j)
-        if ((j & 2) && 8 * (j / 4) + col0 + (j & 1) == cb) lt_b = acc[j];
-    }
+    epi.tile(acc, tile * BN, a);
   }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-    s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
-    s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
-    lt_a += __shfl_xor_sync(0xffffffffu, lt_a, off);
-    lt_b += __shfl_xor_sync(0xffffffffu, lt_b, off);
-  }
-  if (lane % 4 == 0) {
-    const long long plane = (long long)gridDim.y * a.rows;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h ? row_b : row_a;
-      if (row >= a.rows) continue;
-      const long long at = (long long)split * a.rows + row;
-      a.part[at] = h ? m_b : m_a;
-      a.part[plane + at] = h ? l_b : l_a;
-      a.part[2 * plane + at] = h ? s_b : s_a;
-      a.part[3 * plane + at] = h ? lt_b : lt_a;
-    }
-  }
+  epi.finish(a, split, lane);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -745,9 +851,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 }
 
 // h [rows, d] contiguous; w [d, V] with strides (sk, sn), one of them 1
-cudaError_t launch(const void* h, const void* w, const int* targets,
-                   const Shape& s, int splits, int tiles_per_split,
-                   float* part, cudaStream_t stream) {
+template <class Epi>
+cudaError_t launch(const void* h, const void* w, const Shape& s, Params p,
+                   int splits, cudaStream_t stream) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
   const bool mn = s.sk != 1;  // V-contiguous w: [d, V] rows of stride sk
@@ -756,10 +862,12 @@ cudaError_t launch(const void* h, const void* w, const int* targets,
       !(mn ? make_map(enc, &tw, w, s.V, s.d, s.sk, 64)
            : make_map(enc, &tw, w, s.d, s.V, s.sn, BN)))
     return cudaErrorInvalidValue;
-  const Params p{targets, part, s.rows, s.V, s.d, (s.V + BN - 1) / BN,
-                 tiles_per_split};
+  p.rows = s.rows;
+  p.V = s.V;
+  p.d = s.d;
+  p.n_tiles = (s.V + BN - 1) / BN;
   dim3 grid((s.rows + BM - 1) / BM, splits);
-  auto kern = mn ? &forward_partial<1> : &forward_partial<0>;
+  auto kern = mn ? &walk<1, Epi> : &walk<0, Epi>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
   if (e != cudaSuccess) return e;
@@ -822,11 +930,42 @@ extern "C" int token_logprob_entropy_forward_wgmma(
     return (int)cudaErrorInvalidValue;
   const Shape s{rows, d, V, sk, sn};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = wg::launch(h, w, (const int*)targets, s, splits,
-                               tiles_per_split, (float*)part, st);
+  wg::Params p = {};
+  p.targets = (const int*)targets;
+  p.part = (float*)part;
+  p.tiles_per_split = tiles_per_split;
+  cudaError_t err = wg::launch<wg::Stats>(h, w, s, p, splits, st);
   if (err != cudaSuccess) return (int)err;
   forward_merge<<<(rows + 255) / 256, 256, 0, st>>>(
       (const float*)part, splits, rows, (float*)logp, (float*)ent,
       (float*)logz, (float*)mean_logit);
   return (int)cudaGetLastError();
+}
+
+// The backward's logit cotangent of bf16 operands through TMA and wgmma
+// (namespace wg): the forward's operands and checks; logz, mean_logit,
+// g_logp and g_ent float32 [rows] (a null cotangent counts as zero); dl
+// bf16 [2][rows][ldv], ldv >= V a multiple of 8: the high parts, then the
+// remainders. Grid and plan as the forward's.
+extern "C" int token_logprob_entropy_dlogits_wgmma(
+    const void* h, const void* w, const void* targets, const void* logz,
+    const void* mean_logit, const void* g_logp, const void* g_ent, void* dl,
+    int rows, int d, int V, long long sk, long long sn, long long ldv,
+    int splits, int tiles_per_split, void* stream) {
+  if (rows <= 0) return 0;
+  if ((sk != 1 && sn != 1) || d % 8 != 0 || (sk == 1 ? sn : sk) % 8 != 0 ||
+      ldv < V || ldv % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Shape s{rows, d, V, sk, sn};
+  wg::Params p = {};
+  p.targets = (const int*)targets;
+  p.logz = (const float*)logz;
+  p.mu = (const float*)mean_logit;
+  p.g_logp = (const float*)g_logp;
+  p.g_ent = (const float*)g_ent;
+  p.dl = (bf16*)dl;
+  p.ldv = ldv;
+  p.tiles_per_split = tiles_per_split;
+  return (int)wg::launch<wg::Cotangent>(h, w, s, p, splits,
+                                        (cudaStream_t)stream);
 }

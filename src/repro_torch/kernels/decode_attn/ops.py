@@ -4,7 +4,8 @@
 A tensor on the CPU takes the plain PyTorch version; a CUDA tensor takes
 the CUDA kernel or raises — there is no fallback. ``LAUNCHES`` counts the
 paged kernel's launches and ``DENSE_LAUNCHES`` the dense kernel's (and
-nothing else), so a run can show that its main path went through them.
+nothing else), so a run can show that its main path went through them;
+``DENSE_PLAN`` is the split plan of the dense kernel's last launch.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.kernels.decode_attn.ref import (
 
 LAUNCHES = 0        # paged_decode_attention_op's kernel
 DENSE_LAUNCHES = 0  # decode_attention_op's kernel
+DENSE_PLAN = None   # (split_keys, n_splits) of its last launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,23 +134,36 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
 
     q [B,H,hd]; k/v_cache [B,L,KV,hd]; lengths [B] int32 valid-key counts
     (keys at positions >= lengths[b] are masked; a row of length 0 gives 0
-    on the card) -> [B,H,hd] in q's dtype.
+    on the card) -> [B,H,hd] in q's dtype. On the card bf16 takes the
+    split-KV kernel under ``kernel.split_plan`` (host-known sizes only:
+    nothing here reads ``lengths`` on the host), float32 the first design.
     """
-    global DENSE_LAUNCHES
+    global DENSE_LAUNCHES, DENSE_PLAN
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention: no kernel for {q.device}")
     code, B, H, KV, L, hd = check_dense_inputs(q, k_cache, v_cache,
                                                lengths)
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode attention: q and caches must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    # bf16 takes the split-KV kernel, float32 the first design (one split)
+    split_keys, n_splits = L, 1
+    if code == 1:
+        dev = q.device.index
+        split_keys, n_splits = kernel.split_plan(
+            B, KV, L, paged_kernel.sm_count(torch.cuda.current_device()
+                                            if dev is None else dev))
     err = kernel.fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, KV, L, hd,
-        code, torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(), B, H, KV, L, hd, split_keys,
+        n_splits, code, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention: CUDA error {err}")
     DENSE_LAUNCHES += 1
+    DENSE_PLAN = (split_keys, n_splits)
     return out

@@ -18,7 +18,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # split plan: at least WAVES blocks per SM when every slot is full, no
 # split shorter than MIN_SPLIT_KEYS keys (one 16-key tile per warp), and at
 # most MAX_SPLITS splits, the blocks of one thread-block cluster that merge
-# through shared memory (kMaxSplits in csrc/paged_decode_attn.cu)
+# through shared memory (kMaxSplits in csrc/decode_split.cuh); dense
+# decode's plan (kernel.py) takes the same constants
 WAVES = 2
 MIN_SPLIT_KEYS = 64
 MAX_SPLITS = 8

@@ -87,3 +87,16 @@ def forward_wgmma_fn():
     fn.argtypes = [_P] * 8 + [_I] * 3 + [_L] * 2 + [_I] * 2 + [_P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def dlogits_wgmma_fn():
+    """token_logprob_entropy_dlogits_wgmma(h, w, targets, logz, mean_logit,
+    g_logp, g_ent, dl, rows, d, V, sk, sn, ldv, splits, tiles_per_split,
+    stream) -> cudaError_t; dl is bf16 [2, rows, ldv] (high parts, then
+    remainders), a null cotangent counts as zero."""
+    fn = _build.load("token_logprob_entropy") \
+        .token_logprob_entropy_dlogits_wgmma
+    fn.argtypes = [_P] * 8 + [_I] * 3 + [_L] * 3 + [_I] * 2 + [_P]
+    fn.restype = _I
+    return fn

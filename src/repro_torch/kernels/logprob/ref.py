@@ -61,3 +61,12 @@ def token_logprob_entropy_bwd_ref(hidden: torch.Tensor, w: torch.Tensor,
     h32, w32 = hidden.float(), w.float()
     dl = dlogits_ref(h32 @ w32, targets, logz, mean_logit, g_logp, g_ent)
     return (dl @ w32.T).to(hidden.dtype), (h32.T @ dl).to(w.dtype)
+
+
+def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 tensor as a bf16 high part and the bf16 rounding of the
+    remainder (the plain version of the form in which the wgmma cotangent
+    kernel stores dl): hi + lo is x to a relative 2^-16 (each rounding is
+    to 8 significant bits)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)

@@ -45,6 +45,7 @@ from repro.kernels.prefill_attn.ref import (
 from repro_torch.kernels import _build
 from repro_torch.kernels.a3po_loss import ops as aops
 from repro_torch.kernels.a3po_loss.ref import a3po_loss_bwd_ref, a3po_loss_ref
+from repro_torch.kernels.decode_attn import kernel as dense_kernel
 from repro_torch.kernels.decode_attn import ops as dops
 from repro_torch.kernels.decode_attn import paged_kernel
 from repro_torch.kernels.decode_attn.ref import (
@@ -55,6 +56,8 @@ from repro_torch.kernels.flash_attn import ops as fops
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.logprob import ops as lops
 from repro_torch.kernels.logprob.ref import (
+    dlogits_ref,
+    split_hi_lo,
     token_logprob_entropy_bwd_ref,
     token_logprob_entropy_ref,
     token_logprob_entropy_stats_ref,
@@ -633,6 +636,103 @@ def test_bf16_tolerance_sees_a_missing_key_dense(kernel):
     assert min(rec["wrong_kernel_err_over_tol"].values()) > 2.0
 
 
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("B,KV,L", [(16, 2, 1056), (16, 1, 1056),
+                                    (16, 2, 1000), (4, 2, 40), (1, 1, 1),
+                                    (3, 8, 300), (64, 2, 4096),
+                                    (2, 1, 17)])
+def test_dense_decode_split_plan_covers_every_key_once(B, KV, L, n_sm):
+    """The dense decode wrapper's split plan: from host-known sizes only
+    (B, KV, L, the SM count; never the lengths), splits of whole 16-key
+    tiles that cover positions 0 .. L - 1 exactly once, none empty, at
+    most 8 (one cluster), none shorter than 64 keys unless the cache is;
+    at the rollout's B 16 and KV 2 it puts 8 splits of 144 keys (256
+    blocks) on the card. For any lengths the blocks that hold keys of a
+    row are its first splits, as the kernel's merge assumes."""
+    import inspect
+    assert list(inspect.signature(dense_kernel.split_plan).parameters) == [
+        "B", "KV", "L", "n_sm"]
+    sk, n = dense_kernel.split_plan(B, KV, L, n_sm)
+    tile = dense_kernel.TILE
+    assert sk % tile == 0 and 1 <= n <= paged_kernel.MAX_SPLITS
+    assert sk >= min(paged_kernel.MIN_SPLIT_KEYS, -(-L // tile) * tile)
+    covered = np.zeros(L, np.int32)
+    for i in range(n):  # split i as the kernel walks it
+        s0, s1 = i * sk, min((i + 1) * sk, L)
+        assert s0 < s1
+        covered[s0:s1] += 1
+    assert (covered == 1).all()
+    for length in range(L + 1):
+        busy = [i for i in range(n) if i * sk < length]
+        assert busy == list(range(-(-length // sk)))
+    if (B, KV, L) == (16, 2, 1056) and n_sm == 132:
+        assert (sk, n) == (144, 8)
+
+
+def test_chip_smoke_dense_cases_hit_their_boundaries():
+    """chip_smoke.py's dense decode boundary cases are what they claim:
+    16 lengths within the cache, on the plan's split boundaries and one
+    key past them, on 16-key tiles, at L 1056 and at an L that is not a
+    multiple of the tile; the short row is one key past a split
+    boundary."""
+    cs = _chip_smoke()
+    cases = cs._dense_boundary_cases(torch, n_sm=132)
+    assert [c["L"] for c in cases] == [1056, 1000]
+    assert cases[1]["L"] % dense_kernel.TILE
+    for c in cases:
+        sk = cs._dense_splits(torch, 16, 2, c["L"], n_sm=132)["split_keys"]
+        lens = c["lengths"]
+        assert len(lens) == c["B"] == 16
+        assert all(1 <= n <= c["L"] for n in lens) and c["L"] in lens
+        assert {sk, sk + 1, 2 * sk + 1, 16, 17} <= set(lens)
+        (row,) = c["short_rows"].values()
+        assert lens[row] % sk == 1 and lens[row] > sk
+
+
+@pytest.mark.parametrize("name,ours", [
+    ("void (anonymous namespace)::wg::walk<0, (anonymous namespace)::wg::"
+     "Cotangent>(CUtensorMap_st", True),
+    ("void (anonymous namespace)::tc::split_kernel<128, (anonymous "
+     "namespace)::DenseKeys>((anony", True),
+    ("(anonymous namespace)::forward_merge(float const*, int, int", True),
+    ("void (anonymous namespace)::decode_attn<128>(float const*", True),
+    ("void (anonymous namespace)::softmax_warp_forward<float, float", False),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy_vectorized"
+     "<at::native", False),
+    ("nvjet_tst_128x16_64x11_4x1_v_bz_NNT", False),
+])
+def test_chip_smoke_profile_tells_the_port_kernels(name, ours):
+    """chip_smoke.py's device profile lists the port's own kernels (the
+    ``__global__`` functions of ``kernels/csrc``, in anonymous namespaces)
+    and not PyTorch's kernels that also live in anonymous namespaces."""
+    cs = _chip_smoke()
+    assert {"walk", "split_kernel", "decode_attn", "forward_merge"} <= \
+        cs._port_kernel_names()
+    assert cs._is_port_kernel(name) == ours
+
+
+def test_split_hi_lo_reconstructs_float32():
+    """The plain version of the wgmma cotangent kernel's storage: a bf16
+    high part and the bf16 rounding of the remainder give back float32 dl
+    within 2^-16 |dl| (each rounding keeps 8 significant bits), where the
+    high part alone is off by up to 2^-8 |dl|."""
+    h, w, t = _logprob_inputs(21, 40, 64, 777)
+    th, tw, tt = _t(h, w, t)
+    _, _, logz, mu = token_logprob_entropy_stats_ref(th, tw, tt)
+    rng = np.random.default_rng(22)
+    g_lp, g_en = (torch.from_numpy(rng.standard_normal(40).astype(
+        np.float32)) for _ in range(2))
+    dl = dlogits_ref(th @ tw, tt, logz, mu, g_lp, g_en)
+    hi, lo = split_hi_lo(dl)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    x = dl.double()
+    err = (hi.double() + lo.double() - x).abs()
+    assert bool((err <= 2.0 ** -16 * x.abs()).all())
+    err_hi = (hi.double() - x).abs()
+    assert bool((err_hi <= 2.0 ** -8 * x.abs()).all())
+    assert float((err_hi / x.abs().clamp_min(1e-30)).max()) > 2.0 ** -12
+
+
 # ------------------------------------------------------------ training kernels
 def _a3po_inputs(seed, T):
     """Tokens where the clip is active on both sides, the iw cap is active
@@ -917,6 +1017,7 @@ def test_cuda_a3po_loss_vs_plain(cuda_device, T):
     (100, 128, 1000, torch.bfloat16, "tied", True),
     (300, 1536, 1000, torch.bfloat16, "tied", True),  # d of Qwen2.5-1.5B
     (300, 1536, 1000, torch.bfloat16, "dv", True),
+    (1100, 256, 1000, torch.bfloat16, "tied", True),  # two backward chunks
     (40, 100, 777, torch.bfloat16, "dv", False),  # rows not 16-byte aligned
 ])
 def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
@@ -926,9 +1027,9 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
     layouts of w, odd vocabularies and depths that are not a multiple of
     the tile depth; T and V not multiples of the wgmma kernel's tiles (128
     tokens, 128 vocab entries). bf16 operands with 16-byte aligned rows
-    take the wgmma forward, others the first design: LAUNCHES says which.
-    Tolerances: forward 1e-4 + 1e-5 |ref|; backward 1e-5 max|ref| + (1e-4
-    float32, 1e-2 bf16 output rounding) |ref|."""
+    take the wgmma forward and backward, others the first design: LAUNCHES
+    says which. Tolerances: forward 1e-4 + 1e-5 |ref|; backward 1e-5
+    max|ref| + (1e-4 float32, 1e-2 bf16 output rounding) |ref|."""
     h, w, t = _logprob_inputs(T * 7 + d, T, d, V)
     th = torch.from_numpy(h).to(cuda_device, dtype)
     if layout == "tied":
@@ -938,7 +1039,7 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
         tw = torch.from_numpy(w).to(cuda_device, dtype)
     tt = torch.from_numpy(t).to(cuda_device)
     f0, b0 = lops.LAUNCHES["forward"], lops.LAUNCHES["backward"]
-    w0 = lops.LAUNCHES["forward_wgmma"]
+    w0, bw0 = lops.LAUNCHES["forward_wgmma"], lops.LAUNCHES["backward_wgmma"]
     hk = th.clone().requires_grad_(True)
     wk = tw.detach().clone().requires_grad_(True) if layout == "dv" else \
         tw.detach().T.clone().requires_grad_(True)
@@ -962,6 +1063,118 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
     assert lops.LAUNCHES["forward_wgmma"] - w0 == int(wgmma)
     assert lops.takes_wgmma(hk, wk if layout == "dv" else wk.T) == wgmma
     assert lops.LAUNCHES["backward"] - b0 == -(-T // lops.CHUNK)
+    assert lops.LAUNCHES["backward_wgmma"] - bw0 == \
+        int(wgmma) * -(-T // lops.CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotangents", ["both", "logp_only"])
+@pytest.mark.parametrize("T,d,V,layout", [(300, 1536, 1000, "tied"),
+                                          (129, 64, 4096, "dv"),
+                                          (64, 512, 513, "tied"),
+                                          (7, 48, 40, "dv")])
+def test_cuda_logprob_dlogits_parts_vs_plain(cuda_device, T, d, V, layout,
+                                             cotangents):
+    """The wgmma cotangent kernel's dl, a bf16 high part over a bf16
+    remainder in rows padded to a multiple of 8, against its plain version:
+    the float32 dl of the plain logits (``dlogits_ref``; ``split_hi_lo``
+    gives the parts). The kernel's logits differ by float32 summation
+    order, so the parts are held as the value they carry, within 1e-5
+    max|dl| + 1e-4 |dl|; T and V not multiples of the 128-wide tiles, both
+    layouts of w, the entropy's cotangent absent (a null pointer)."""
+    h, w, t = _logprob_inputs(T + V, T, d, V)
+    th = torch.from_numpy(h).to(cuda_device, torch.bfloat16)
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).to(
+        cuda_device, torch.bfloat16).T if layout == "tied" else \
+        torch.from_numpy(w).to(cuda_device, torch.bfloat16)
+    tt = torch.from_numpy(t).to(cuda_device)
+    assert lops.takes_wgmma(th, tw)
+    _, _, logz, mu = lops._forward_kernel(th, tw, tt)
+    g = torch.randn(2, T, device=cuda_device)
+    g_ent = g[1].contiguous() if cotangents == "both" else None
+    ldv = -(-V // 8) * 8
+    buf = torch.full((2 * T * ldv,), float("nan"), dtype=torch.bfloat16,
+                     device=cuda_device)
+    b0 = lops.LAUNCHES["backward_wgmma"]
+    dl = lops.dlogits_parts(th, tw, tt, logz, mu, g[0], g_ent, 0, T, buf)
+    assert dl.shape == (2 * T, ldv) and dl.data_ptr() == buf.data_ptr()
+    assert lops.LAUNCHES["backward_wgmma"] - b0 == 1
+    ref = dlogits_ref(th.float() @ tw.float(), tt, logz, mu, g[0], g_ent)
+    got = dl[:T, :V].double() + dl[T:, :V].double()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref.double(), rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    hi, _ = split_hi_lo(ref)
+    assert float((dl[:T, :V] == hi).float().mean()) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,layout", [(1100, "tied"), (2300, "dv")])
+def test_cuda_logprob_backward_reads_no_stale_memory(cuda_device, monkeypatch,
+                                                     T, layout):
+    """The wgmma backward over several token chunks with every buffer it
+    allocates filled with NaN first: dw's float32 accumulator starts from a
+    product with beta 0, so nothing stale reaches dh or dw; both against
+    the plain float32 backward on the same logz, mu and cotangents, within
+    1e-5 max|ref| + 1e-2 |ref| (bf16 output rounding)."""
+    d, V = 256, 1000
+    h, w, t = _logprob_inputs(T + 3, T, d, V)
+    th = torch.from_numpy(h).to(cuda_device, torch.bfloat16)
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).to(
+        cuda_device, torch.bfloat16).T if layout == "tied" else \
+        torch.from_numpy(w).to(cuda_device, torch.bfloat16)
+    tt = torch.from_numpy(t).to(cuda_device)
+    _, _, logz, mu = lops._forward_kernel(th, tw, tt)
+    g = torch.randn(2, T, device=cuda_device)
+    empty = torch.empty
+
+    def poisoned(*args, **kw):
+        x = empty(*args, **kw)
+        return x.fill_(float("nan")) if x.is_floating_point() else x
+    monkeypatch.setattr(torch, "empty", poisoned)
+    b0 = lops.LAUNCHES["backward_wgmma"]
+    dh, dw = lops._backward_kernel(th, tw, tt, logz, mu, g[0], g[1], True,
+                                   True)
+    monkeypatch.undo()
+    assert lops.LAUNCHES["backward_wgmma"] - b0 == -(-T // lops.CHUNK) > 1
+    ref = token_logprob_entropy_bwd_ref(th.float(), tw.float(), tt, logz,
+                                        mu, g[0], g[1])
+    for o, r in zip((dh, dw), ref):
+        assert o.dtype == torch.bfloat16
+        torch.testing.assert_close(o.float(), r, rtol=1e-2,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,L,hd", [(12, 2, 1056, 128), (12, 2, 1000, 128),
+                                       (12, 1, 300, 128), (48, 1, 300, 128),
+                                       (16, 2, 40, 64), (6, 1, 2000, 64)])
+def test_cuda_dense_decode_split_boundaries(cuda_device, H, KV, L, hd):
+    """The bf16 split-KV dense decode against its plain version in float32
+    at 16 rows whose lengths lie on the wrapper's split boundaries, on
+    16-key tiles and one key past them (L and 1 included; L not always a
+    multiple of the tile; one split when L is short), at groups of 6, 12,
+    48 and 8; a row of length 0 gives 0; one launch."""
+    B = 16
+    sk, n = dense_kernel.split_plan(B, KV, L, paged_kernel.sm_count(
+        cuda_device.index or 0))
+    want = [L, sk + 1, sk, sk - 1, 2 * sk + 1, 16, 17, 1, L - 1,
+            (n - 1) * sk + 1, (n - 1) * sk, 15, 33, 2 * sk, 0, L // 2]
+    lens = np.clip(want, 0, L).astype(np.int32)
+    kc, vc, _ = _dense_cache(L + H, B, L, KV, hd)
+    kc, vc = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+              for a in (kc, vc))
+    tl = torch.from_numpy(lens).to(cuda_device)
+    q = torch.randn(B, H, hd, device=cuda_device).to(torch.bfloat16)
+    d0 = dops.DENSE_LAUNCHES
+    out = dops.decode_attention_op(q, kc, vc, tl)
+    assert dops.DENSE_LAUNCHES - d0 == 1
+    assert dops.DENSE_PLAN == (sk, n)
+    ref = decode_attention_ref(q.float(), kc.float(), vc.float(), tl)
+    live = tl > 0
+    torch.testing.assert_close(out[live].float(), ref[live], rtol=1e-2,
+                               atol=1e-4)
+    assert bool((out[~live] == 0).all())
 
 
 @pytest.mark.cuda
