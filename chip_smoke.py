@@ -116,10 +116,13 @@ Phases, each printing one JSON line:
              state float32) against their plain versions in float32 on the
              same values, with wrong references the tolerance must fail
              (decode: the decay left out; intra-chunk: the diagonal j = i
-             dropped, an exclusive cumsum); the decode kernel in place under
-             a mask leaves masked rows untouched; each timed beside its
-             bound and its plain version (no single library call computes
-             either).
+             dropped, an exclusive cumsum, and the bf16 mma kernel's hi
+             parts without its lo products); the intra-chunk kernel's
+             in-chunk cumsum (which the scan uses) against torch.cumsum;
+             the decode kernel in place under a mask leaves masked rows
+             untouched; each timed beside its bound and its plain version
+             (no single library call computes either); each record gives
+             the wrapper's launch plan.
 12. ssm serving — mamba2-370m (48 SSM layers) and zamba2-1.2b (32 SSM
              layers + 6 applications of one shared attention block) at full
              width and depth, bf16, seeded random weights: 16 requests
@@ -150,6 +153,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -274,9 +278,16 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ kernels
+# ~0.1 ms of device time at the H100's clock: longer than any wrapper's
+# host work, which a small kernel's time would otherwise take in
+SPIN_CYCLES = 200_000
+
+
 class Timer:
     """CUDA-event time of one call, with the L2 cache flushed before each
-    launch (the engine finds each layer's pages cold)."""
+    launch (the engine finds each layer's pages cold): the median over
+    ``iters`` launches, so that a rare stall of the host (longer than the
+    spin) does not move it."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -287,17 +298,20 @@ class Timer:
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
+        times = []
         for _ in range(iters):
             self.flush.zero_()
+            # keep the card busy while the host runs the wrapper, so that
+            # the events time the device's work, never an idle gap
+            torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
             b.record()
             b.synchronize()
-            total += a.elapsed_time(b)
-        return total / iters
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
 
 
 def _pool(torch, g, *, n_blocks, bs, KV, hd, S, mb, max_len, dtype,
@@ -2364,7 +2378,10 @@ LOG_DT_LO, LOG_DT_HI = math.log(1e-3), math.log(0.5)
 # cumsum in another order (its rounding moves a decay exp(cum_i - cum_j)
 # by ~1e-5 relative at |cum| ~ 100): |out - ref| <= 1e-4 |ref| + 1e-4
 # max|ref|. A reference without the diagonal j = i, or with an exclusive
-# cumsum, moves the outputs by ~10% of their size and must fail it.
+# cumsum, moves the outputs by ~10% of their size and must fail it; so
+# must one with M and xdt rounded to bf16 (2^-9 per term: the bf16 mma
+# kernel's hi parts without its lo products). The kernel's cum is held
+# against torch.cumsum within the same tolerance.
 SSD_INTRA_RTOL = 1e-4
 # At the reference's init stds both random models repeat their last token
 # at logp ~0 (the tied embedding dominates), and at x2 and x4 they still
@@ -2417,6 +2434,31 @@ def _exclusive_la(torch, la, L):
                      dim=2).reshape(B, S, nh)
 
 
+def _ssd_intra_hi_only(torch, xdt, la, b32, c32, L):
+    """The plain intra-chunk block with the mma kernel's float32 operands
+    rounded to bf16 and no remainder products: M and xdt for y, w * xdt
+    for s_local (B is exact in bf16). The tolerance must fail it, or the
+    kernel's lo products are not needed."""
+    B, S, nh, hd = xdt.shape
+    ds = b32.shape[-1]
+    nc = S // L
+
+    def hi(t):
+        return t.to(torch.bfloat16).float()
+    x = xdt.reshape(B, nc, L, nh, hd)
+    cum = torch.cumsum(la.reshape(B, nc, L, nh), dim=2)
+    bc = b32.reshape(B, nc, L, ds)
+    cb = torch.einsum("bnis,bnjs->bnij", c32.reshape(B, nc, L, ds), bc)
+    i = torch.arange(L, device=xdt.device)
+    causal = (i[:, None] >= i[None, :])[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    m = cb[..., None] * torch.exp(torch.where(causal, seg, float("-inf")))
+    y = torch.einsum("bnijh,bnjhd->bnihd", hi(m), hi(x))
+    w = torch.exp(cum[:, :, -1:, :] - cum)
+    s_local = torch.einsum("bnjhd,bnjs->bnhds", hi(w[..., None] * x), bc)
+    return y.reshape(B, S, nh, hd), s_local
+
+
 def phase_ssd_kernels(torch):
     """Both SSD kernels on bf16 inputs (xdt and state float32, as the path
     gives them) against their plain versions in float32 on the same
@@ -2435,6 +2477,7 @@ def phase_ssd_kernels(torch):
     for model, nh, ds in SSD_DECODE_SHAPES:
         state, x, dt, a_log, b, c = _ssd_decode_inputs(torch, g, nh, ds)
         y, new = sops.ssd_decode_step(state, x, dt, a_log, b, c)
+        plan = dict(sops.PLANS["ssd_decode_step"])
         args32 = (state, x.float(), dt, a_log.float(), b.float(), c.float())
         y_ref, new_ref = ssd_decode_step_ref(*args32)
         no_decay = (*args32[:3], torch.full_like(args32[3], float("-inf")),
@@ -2443,7 +2486,7 @@ def phase_ssd_kernels(torch):
         rec = {"phase": "kernel", "name": "ssd_decode_step", "model": model,
                "dtype": "bfloat16", "shape": {"B": SSD_SLOTS, "nh": nh,
                                               "hd": SSD_HD, "ds": ds},
-               "library": "none (no single call)"}
+               "library": "none (no single call)", "plan": plan}
         sub = {"y": {"name": "ssd_decode_step.y"},
                "state": {"name": "ssd_decode_step.state"}}
         _hold(torch, sub["y"], y, y_ref, TOL["bfloat16"],
@@ -2471,33 +2514,46 @@ def phase_ssd_kernels(torch):
             lambda: sops.ssd_decode_step(pool, x, dt, a_log, b, c, out=pool),
             lambda: ssd_decode_step_ref(state, x, dt, a_log, b, c), None,
             iters=50))
+        # a yardstick of what such traffic costs: an elementwise PyTorch
+        # pass that reads and writes the same state in place
+        rec["stream_ms"] = timer.ms(lambda: pool.mul_(1.0), iters=50)
         if model == "mamba2-370m":
             results["ssd_decode_step"] = rec
         emit(rec)
     for model, B, L, nh, ds in SSD_INTRA_SHAPES:
         xdt, la, b, c = _ssd_intra_inputs(torch, g, B, L, nh, ds)
-        outs = sops.ssd_intra_chunk(xdt, la, b, c, L)
+        # the scan's call: the three outputs and the in-chunk cumsum
+        outs = sops.ssd_intra_chunk_cum(xdt, la, b, c, L)
+        plan = dict(sops.PLANS["ssd_intra_chunk"])
         b32, c32 = b.float(), c.float()
-        refs = ssd_intra_chunk_ref(xdt, la, b32, c32, L)
-        excl = ssd_intra_chunk_ref(xdt, _exclusive_la(torch, la, L), b32,
-                                   c32, L)
+        ex_la = _exclusive_la(torch, la, L)
+        cums = [torch.cumsum(t.reshape(B, 1, L, nh), dim=2).reshape(B, L, nh)
+                for t in (la, ex_la)]
+        refs = (*ssd_intra_chunk_ref(xdt, la, b32, c32, L), cums[0])
+        excl = (*ssd_intra_chunk_ref(xdt, ex_la, b32, c32, L), cums[1])
         diag = (c32 * b32).sum(-1)[..., None, None] * xdt
+        hi_only = _ssd_intra_hi_only(torch, xdt, la, b32, c32, L)
         rec = {"phase": "kernel", "name": "ssd_intra_chunk", "model": model,
                "dtype": "bfloat16 b/c, float32 xdt/la",
                "shape": {"B": B, "S": L, "chunk": L, "nh": nh, "hd": SSD_HD,
-                         "ds": ds}, "library": "none (no single call)"}
+                         "ds": ds}, "library": "none (no single call)",
+               "plan": plan}
         sub = {}
-        for i, label in enumerate(("y_intra", "s_local", "cdec")):
+        for i, label in enumerate(("y_intra", "s_local", "cdec", "cum")):
             wrong = {"exclusive_cumsum": excl[i]}
             if label == "y_intra":
                 wrong["diagonal_dropped"] = refs[0] - diag
+            if i < 2:
+                wrong["hi_only"] = hi_only[i]
             tol = {"rtol": SSD_INTRA_RTOL,
                    "atol": SSD_INTRA_RTOL * refs[i].abs().max().item()}
             sub[label] = {"name": f"ssd_intra_chunk.{label}"}
             _hold(torch, sub[label], outs[i], refs[i], tol, wrong)
+        # the kernels line's error: the three outputs the parent wrote too
+        # (cum's, at |cum| up to ~10^2, is in its own check)
         rec.update(checks=sub, max_abs_err=max(
-            s["max_abs_err"] for s in sub.values()))
-        del refs, excl, diag
+            sub[k]["max_abs_err"] for k in ("y_intra", "s_local", "cdec")))
+        del refs, excl, diag, hi_only
         pairs = L * (L + 1) // 2
         nbytes = (4 * (2 * xdt.numel() + la.numel())
                   + 2 * (b.numel() + c.numel())

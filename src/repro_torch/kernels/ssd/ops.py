@@ -6,7 +6,9 @@ tensor takes the CUDA kernel or raises — there is no fallback. The kernels
 have no backward (the JAX package trains SSM stacks through XLA autodiff
 of its jnp scan and has no backward kernel): on a CUDA tensor that
 requires a gradient, under autograd, the ops raise. ``LAUNCHES`` counts
-each kernel's launches, and nothing else.
+each kernel's launches, and nothing else; ``PLANS`` holds the launch plan
+(``kernel.decode_plan`` / ``kernel.intra_plan``) of each kernel's last
+launch.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.kernels.ssd.ref import (
 )
 
 LAUNCHES = {"ssd_decode_step": 0, "ssd_intra_chunk": 0}
+PLANS = {"ssd_decode_step": None, "ssd_intra_chunk": None}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,6 +88,12 @@ def check_decode_inputs(state, x, dt, a_log, b, c, out=None, update=None
             or c.stride(1) != 1:
         raise ValueError("ssd_decode_step: x's heads and b/c's state "
                          "entries must be contiguous within a row")
+    if ds not in kernel.STATE_DIMS:
+        raise ValueError(f"ssd_decode_step: d_state {ds} (need one of "
+                         f"{kernel.STATE_DIMS})")
+    if state.data_ptr() % 16 or (out is not None and out.data_ptr() % 16):
+        raise ValueError("ssd_decode_step: state and out must be 16-byte "
+                         "aligned")
     return _DTYPE_CODES[x.dtype], _DTYPE_CODES[a_log.dtype]
 
 
@@ -105,7 +114,6 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     plain version rounds the state to c's dtype first, as the JAX
     reference does.
     """
-    global LAUNCHES
     if update is not None and out is None:
         raise ValueError("ssd_decode_step: update requires out")
     if not _on_card("ssd_decode_step", state, x, dt, a_log, b, c):
@@ -119,6 +127,7 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     code, alog_code = check_decode_inputs(state, x, dt, a_log, b, c, out,
                                           update)
     B, nh, hd, ds = state.shape
+    plan = kernel.decode_plan(B, nh, hd, ds)
     new = torch.empty_like(state) if out is None else out
     y = torch.empty((B, nh, hd), dtype=x.dtype, device=x.device)
     err = kernel.decode_fn()(
@@ -126,10 +135,11 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
         b.data_ptr(), c.data_ptr(),
         None if update is None else update.data_ptr(), new.data_ptr(),
         y.data_ptr(), B, nh, hd, ds, x.stride(0), b.stride(0), c.stride(0),
-        code, alog_code, _stream(x))
+        code, alog_code, plan["blocks"], _stream(x))
     if err != 0:
         raise RuntimeError(f"ssd_decode_step: CUDA error {err}")
     LAUNCHES["ssd_decode_step"] += 1
+    PLANS["ssd_decode_step"] = plan
     return y, new
 
 
@@ -156,12 +166,14 @@ def check_intra_chunk_inputs(xdt, la, b, c, chunk: int) -> int:
     if not (0 < chunk <= kernel.MAX_CHUNK) or S % chunk:
         raise ValueError(f"ssd_intra_chunk: chunk {chunk} must divide S={S} "
                          f"and be at most {kernel.MAX_CHUNK}")
+    code = _DTYPE_CODES[b.dtype]
+    per_block = kernel.HEADS_PER_BLOCK[code]
     if hd not in kernel.HEAD_DIMS or ds not in kernel.STATE_DIMS \
-            or nh % kernel.HEADS_PER_BLOCK:
+            or nh % per_block:
         raise ValueError(f"ssd_intra_chunk: head_dim {hd} (need one of "
                          f"{kernel.HEAD_DIMS}), d_state {ds} (need one of "
                          f"{kernel.STATE_DIMS}), heads {nh} (a multiple of "
-                         f"{kernel.HEADS_PER_BLOCK})")
+                         f"{per_block} for {b.dtype} b/c)")
     if not xdt.is_contiguous() or not la.is_contiguous() \
             or xdt.data_ptr() % 16:
         raise ValueError("ssd_intra_chunk: xdt (16-byte aligned) and la "
@@ -169,7 +181,46 @@ def check_intra_chunk_inputs(xdt, la, b, c, chunk: int) -> int:
     if b.stride(2) != 1 or c.stride(2) != 1:
         raise ValueError("ssd_intra_chunk: b/c state entries must be "
                          "contiguous")
-    return _DTYPE_CODES[b.dtype]
+    return code
+
+
+def _rows_16b(t: torch.Tensor) -> bool:
+    """Whether every row of a bf16 [B,S,ds] tensor starts 16-byte aligned
+    (the mma kernel's cp.async loads)."""
+    return (t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+            and t.stride(1) % 8 == 0)
+
+
+def _intra_chunk_card(xdt, la, b, c, chunk: int, want_cum: bool):
+    """Launch the intra-chunk kernel on CUDA tensors: (y_intra, s_local,
+    cdec, cum), cum the in-chunk inclusive cumsum of la [B,S,nh] float32
+    when ``want_cum``, else None."""
+    code = check_intra_chunk_inputs(xdt, la, b, c, chunk)
+    if code == 1:
+        # the mma kernel loads b/c rows 16 bytes at a time; other strides
+        # are copied (the engines' conv slices are aligned)
+        b = b if _rows_16b(b) else b.contiguous()
+        c = c if _rows_16b(c) else c.contiguous()
+    B, S, nh, hd = xdt.shape
+    ds = b.shape[-1]
+    nc = S // chunk
+    plan = kernel.intra_plan(code, B, S, chunk, nh, hd, ds)
+    y = torch.empty_like(xdt)
+    s_local = torch.empty((B, nc, nh, hd, ds), dtype=torch.float32,
+                          device=xdt.device)
+    cdec = torch.empty((B, nc, nh), dtype=torch.float32, device=xdt.device)
+    cum = torch.empty_like(la) if want_cum else None
+    err = kernel.intra_chunk_fn()(
+        xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+        y.data_ptr(), s_local.data_ptr(), cdec.data_ptr(),
+        None if cum is None else cum.data_ptr(), B, S, nh, hd, ds, chunk,
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1), code,
+        plan["y_tiles"], plan["s_blocks"], _stream(xdt))
+    if err != 0:
+        raise RuntimeError(f"ssd_intra_chunk: CUDA error {err}")
+    LAUNCHES["ssd_intra_chunk"] += 1
+    PLANS["ssd_intra_chunk"] = plan
+    return y, s_local, cdec, cum
 
 
 def ssd_intra_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
@@ -177,27 +228,26 @@ def ssd_intra_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD block: xdt [B,S,nh,hd] float32, la [B,S,nh] float32,
     b/c [B,S,ds]; ``chunk`` divides S -> (y_intra [B,S,nh,hd], s_local
-    [B,nc,nh,hd,ds], cdec [B,nc,nh]), all float32 (see ``ref.py``)."""
-    global LAUNCHES
+    [B,nc,nh,hd,ds], cdec [B,nc,nh]), all float32 (see ``ref.py``). bf16
+    b/c take the tensor-core kernel, float32 b/c the FMA kernel."""
     if not _on_card("ssd_intra_chunk", xdt, la, b, c):
         return ssd_intra_chunk_ref(xdt, la, b, c, chunk)
-    code = check_intra_chunk_inputs(xdt, la, b, c, chunk)
-    B, S, nh, hd = xdt.shape
-    ds = b.shape[-1]
-    nc = S // chunk
-    y = torch.empty_like(xdt)
-    s_local = torch.empty((B, nc, nh, hd, ds), dtype=torch.float32,
-                          device=xdt.device)
-    cdec = torch.empty((B, nc, nh), dtype=torch.float32, device=xdt.device)
-    err = kernel.intra_chunk_fn()(
-        xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), s_local.data_ptr(), cdec.data_ptr(), B, S, nh, hd, ds,
-        chunk, b.stride(0), b.stride(1), c.stride(0), c.stride(1), code,
-        _stream(xdt))
-    if err != 0:
-        raise RuntimeError(f"ssd_intra_chunk: CUDA error {err}")
-    LAUNCHES["ssd_intra_chunk"] += 1
-    return y, s_local, cdec
+    return _intra_chunk_card(xdt, la, b, c, chunk, False)[:3]
+
+
+def ssd_intra_chunk_cum(xdt: torch.Tensor, la: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, chunk: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``ssd_intra_chunk`` and the in-chunk inclusive cumsum of la
+    ([B,S,nh] float32) that the chunked scan needs: on the card the kernel
+    writes the one it computes, on the CPU it is ``torch.cumsum``."""
+    if not _on_card("ssd_intra_chunk", xdt, la, b, c):
+        B, S, nh = la.shape
+        cum = torch.cumsum(la.reshape(B, S // chunk, chunk, nh), dim=2)
+        return (*ssd_intra_chunk_ref(xdt, la, b, c, chunk),
+                cum.reshape(B, S, nh))
+    return _intra_chunk_card(xdt, la, b, c, chunk, True)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -207,7 +257,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """Chunked SSD scan: the intra-chunk op plus the inter-chunk recurrence
     (a loop over S / chunk in torch ops, the reference's ``lax.scan``) and
     ``y_inter = exp(cum) C . S_prev`` (float32 einsum, as the reference
-    leaves them outside its kernel).
+    leaves them outside its kernel; on the card cum comes from the
+    intra-chunk kernel).
 
     x [B,S,nh,hd], dt [B,S,nh] float32 (softplus'd), a_log [nh], b/c
     [B,S,ds] -> (y [B,S,nh,hd] in x's dtype, final state [B,nh,hd,ds]
@@ -230,7 +281,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         c = F.pad(c, (0, 0, 0, pad))
     Sp = S + pad
     nc = Sp // L
-    y_intra, s_local, cdec = ssd_intra_chunk(xdt, la, b, c, L)
+    y_intra, s_local, cdec, cum = ssd_intra_chunk_cum(xdt, la, b, c, L)
+    cum = cum.reshape(B, nc, L, nh)
     state = (torch.zeros((B, nh, hd, ds), dtype=torch.float32,
                          device=x.device)
              if initial_state is None else initial_state.float())
@@ -238,7 +290,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     for n in range(nc):
         prev.append(state)  # the state entering chunk n
         state = state * cdec[:, n, :, None, None] + s_local[:, n]
-    cum = torch.cumsum(la.reshape(B, nc, L, nh), dim=2)
     y_inter = torch.einsum("bnis,bnhds->bnihd",
                            c.reshape(B, nc, L, ds).float(),
                            torch.stack(prev, dim=1))

@@ -33,6 +33,7 @@ from repro.models.layers import logits_from_hidden as jlogits_from_hidden
 from repro.rollout.continuous import ContinuousBatchingEngine as JaxEngine
 from repro.rollout.engine import RolloutEngine as JaxRolloutEngine
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.kernels.ssd.ref import (
     ssd_decode_step_ref,
@@ -222,6 +223,9 @@ def test_ssd_ops_check_inputs_reject_bad_operands():
     with pytest.raises(ValueError, match="contiguous within a row"):
         sops.check_decode_inputs(state, x.transpose(1, 2).contiguous()
                                  .transpose(1, 2), dt, a_log, b, c)
+    with pytest.raises(ValueError, match="d_state"):
+        sops.check_decode_inputs(torch.zeros(B, nh, hd, 8), x, dt, a_log,
+                                 torch.zeros(B, 8), torch.zeros(B, 8))
     S = 64
     xdt = torch.from_numpy(rng.standard_normal((B, S, nh, hd))
                            .astype(np.float32))
@@ -234,9 +238,14 @@ def test_ssd_ops_check_inputs_reject_bad_operands():
         sops.check_intra_chunk_inputs(xdt.repeat(1, 5, 1, 1),
                                       la.repeat(1, 5, 1), bb.repeat(1, 5, 1),
                                       bb.repeat(1, 5, 1), 320)
+    # heads: a multiple of 4 for float32 b/c (the FMA kernel's 4 a
+    # block), any number for bf16 (the mma kernel's 1)
     with pytest.raises(ValueError, match="head_dim"):
-        sops.check_intra_chunk_inputs(xdt[:, :, :3], la[:, :, :3], bb, bb,
-                                      32)
+        sops.check_intra_chunk_inputs(xdt[:, :, :3], la[:, :, :3],
+                                      bb.float(), bb.float(), 32)
+    assert sops.check_intra_chunk_inputs(
+        xdt[:, :, :3].contiguous(), la[:, :, :3].contiguous(), bb, bb,
+        32) == 1
     with pytest.raises(ValueError, match="dtypes"):
         sops.check_intra_chunk_inputs(xdt.double(), la, bb, bb, 32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -260,6 +269,168 @@ def test_ssd_scan_differentiates_on_the_cpu():
 
 
 # ----------------------------------------------------------- params / block
+def _intra_block(plan: dict, k: int, nc: int, nh: int) -> dict:
+    """What block ``k`` of the bf16 plan computes (csrc/ssd.cu,
+    ``tc::intra_kernel``):
+    its batch row, chunk and head, and either its y tile (``tile``) or
+    its d_state columns (``s_cols``: (first, end))."""
+    P = plan["blocks"] // (plan["y_tiles"] + plan["s_blocks"])
+    slot, pair = divmod(k, P)
+    bc, h = divmod(pair, nh)
+    bi, ci = divmod(bc, nc)
+    out = {"b": bi, "chunk": ci, "head": h}
+    if slot < plan["y_tiles"]:
+        out["tile"] = plan["y_tiles"] - 1 - slot
+    else:
+        c0 = (slot - plan["y_tiles"]) * plan["s_cols"]
+        out["s_cols"] = (c0, c0 + plan["s_cols"])
+    return out
+
+
+def _intra_warp_work(plan: dict, blk: dict, warp: int, L: int, hd: int
+                     ) -> dict:
+    """What warp ``warp`` of a bf16 block computes. A y warp: ``rows``
+    (first, end) of its strip and the ``keys`` ranges it multiplies, one a
+    stage (the rows' own keys j <= i are kept by the mask); an s warp: its
+    s_local ``p`` rows and ``s`` columns (first, end) over all L keys."""
+    if "tile" in blk:
+        r0 = blk["tile"] * sk.Y_ROWS
+        rs, kh = warp & 1, warp >> 1
+        i0 = r0 + 16 * rs
+        n_keys = min(L, r0 + sk.Y_ROWS)
+        keys = []
+        for st in range(-(-n_keys // sk.KEY_STAGE)):
+            kj0 = st * sk.KEY_STAGE + 16 * kh
+            if kj0 < n_keys and kj0 <= i0 + 15:
+                keys.append((kj0, min(kj0 + 16, L)))
+        return {"rows": (i0, min(i0 + 16, L)), "keys": keys}
+    strips = hd // 16
+    p0 = warp % strips * 16
+    c0 = blk["s_cols"][0] + warp // strips * plan["warp_s_cols"]
+    return {"p": (p0, p0 + 16), "s": (c0, c0 + plan["warp_s_cols"])}
+
+
+def _decode_unit(t: int, nh: int, hd: int, ds: int) -> dict:
+    """What thread ``t`` of the decode kernel updates: slot, head, state
+    rows (first, end) and d_state columns (first, end)."""
+    lanes = ds // 4
+    per_pair = -(-hd // sk.DECODE_ROWS) * lanes
+    pair, u = divmod(t, per_pair)
+    p0, q = u // lanes * sk.DECODE_ROWS, u % lanes
+    return {"slot": pair // nh, "head": pair % nh,
+            "p": (p0, min(p0 + sk.DECODE_ROWS, hd)), "s": (4 * q, 4 * q + 4)}
+
+
+# shapes (B rows, chunk L) of the paged engine's one-row launches, the
+# ragged tail of a 1000-token prompt, and dense prefill's 8-row blocks
+_PLAN_SHAPES = [(1, 1), (1, 17), (1, 232), (1, 256), (8, 64), (8, 256)]
+
+
+@pytest.mark.parametrize("B,L", _PLAN_SHAPES)
+def test_intra_chunk_plan_covers_every_pair_once(B, L):
+    """The bf16 intra-chunk kernel's launch plan, walked as the kernel
+    walks it (``_intra_block`` / ``_intra_warp_work``, mirrors of
+    csrc/ssd.cu's tc::intra_kernel): every (batch, head, row i, key j <= i)
+    pair of y is multiplied by exactly one warp, every s_local (head, p, s)
+    is written by exactly one warp, and cdec by one block, for every (hd,
+    ds) the kernel takes and 4, 32 and 64 heads. Rows and keys past L are
+    never taken."""
+    tril = np.tril(np.ones((L, L), bool))
+    for hd in sk.HEAD_DIMS:
+        for ds in sk.STATE_DIMS:
+            for nh in (4, 32, 64):
+                plan = sk.intra_plan(1, B, L, L, nh, hd, ds)
+                assert plan["y_tiles"] * sk.Y_ROWS >= L > (
+                    plan["y_tiles"] - 1) * sk.Y_ROWS
+                pairs = np.zeros((B, nh, L, L), np.uint8)
+                s_seen = np.zeros((B, nh, hd, ds), np.uint8)
+                cdec = np.zeros((B, nh), np.int32)
+                for k in range(plan["blocks"]):
+                    blk = _intra_block(plan, k, 1, nh)
+                    bi, h = blk["b"], blk["head"]
+                    assert blk["chunk"] == 0
+                    if "s_cols" not in blk:
+                        for w in range(4):
+                            work = _intra_warp_work(plan, blk, w, L, hd)
+                            (r0, r1) = work["rows"]
+                            for k0, k1 in work["keys"]:
+                                assert k0 < L and k0 < r1
+                                pairs[bi, h, r0:r1, k0:k1] += 1
+                        continue
+                    if blk["s_cols"][0] == 0:
+                        cdec[bi, h] += 1
+                    for w in range(4):
+                        work = _intra_warp_work(plan, blk, w, L, hd)
+                        (p0, p1), (c0, c1) = work["p"], work["s"]
+                        assert p1 <= hd and c1 <= ds
+                        s_seen[bi, h, p0:p1, c0:c1] += 1
+                assert (pairs[:, :, tril] == 1).all(), (hd, ds, nh)
+                assert (s_seen == 1).all(), (hd, ds, nh)
+                assert (cdec == 1).all(), (hd, ds, nh)
+    # more than one chunk: blocks of every (row, chunk, head) once
+    plan = sk.intra_plan(1, 2, 200, 100, 4, 64, 128)
+    seen = np.zeros((2, 2, 4, plan["y_tiles"] + plan["s_blocks"]), np.int32)
+    for k in range(plan["blocks"]):
+        blk = _intra_block(plan, k, 2, 4)
+        role = (blk["tile"] if "tile" in blk else plan["y_tiles"]
+                + blk["s_cols"][0] // plan["s_cols"])
+        seen[blk["b"], blk["chunk"], blk["head"], role] += 1
+    assert (seen == 1).all()
+
+
+def test_decode_plan_covers_every_state_element_once():
+    """The decode kernel's plan, walked as the kernel walks it
+    (``_decode_unit``, a mirror of csrc/ssd.cu's ssd_decode_kernel):
+    every (slot, head, p, s) of the state is updated by exactly one
+    thread, for d_state 16-128 and head dims 32 and 64; the threads of one
+    row are whole segments of lanes (the segmented shuffle), and the plan's
+    blocks hold all its threads with less than one block to spare."""
+    B, nh = 3, 5
+    for hd in (32, 64):
+        for ds in sk.STATE_DIMS:
+            plan = sk.decode_plan(B, nh, hd, ds)
+            lanes = plan["lanes_per_row"]
+            assert 32 % lanes == 0 and plan["units"] % lanes == 0
+            assert (plan["blocks"] - 1) * plan["threads"] < plan["units"] \
+                <= plan["blocks"] * plan["threads"]
+            seen = np.zeros((B, nh, hd, ds), np.int32)
+            for t in range(plan["units"]):
+                u = _decode_unit(t, nh, hd, ds)
+                (p0, p1), (s0, s1) = u["p"], u["s"]
+                seen[u["slot"], u["head"], p0:p1, s0:s1] += 1
+                # the lanes of one row group are one aligned segment
+                assert (t % lanes) * 4 == s0
+            assert (seen == 1).all(), (hd, ds)
+
+
+def test_split_products_reconstruct_float32():
+    """The mma intra-chunk kernel's products on split operands (csrc/ssd.cu,
+    tc): y = M xdt as hi.hi + hi.lo + lo.hi and s_local = (w xdt)^T B as
+    hi.B + lo.B reproduce the float32 products within 2^-15 of the sum of
+    the terms' sizes, while hi.hi alone does not (which is why the lo
+    products stay)."""
+    from repro_torch.kernels.logprob.ref import split_hi_lo
+    rng = np.random.default_rng(8)
+    m = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32))
+    bt = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    (mh, ml), (xh, xl) = split_hi_lo(m), split_hi_lo(x)
+    d = torch.Tensor.double
+
+    def worst(got, a, b):
+        exact = d(a) @ d(b)
+        return ((got - exact).abs() / (d(a).abs() @ d(b).abs())).max().item()
+
+    three = d(mh) @ d(xh) + d(mh) @ d(xl) + d(ml) @ d(xh)
+    assert worst(three, m, x) < 2.0 ** -15
+    assert worst(d(mh) @ d(xh), m, x) > 2.0 ** -15
+    xt = x.t().contiguous()
+    two = d(xh.t()) @ d(bt) + d(xl.t()) @ d(bt)
+    assert worst(two, xt, bt) < 2.0 ** -15
+    assert worst(d(xh.t()) @ d(bt), xt, bt) > 2.0 ** -15
+
+
 def test_init_a_log_and_dt_bias_ranges():
     """a_log draws A uniform in [1, 16]; dt_bias is the inverse softplus of
     dt log-uniform in [1e-3, 1e-1]; both from the explicit generator."""
@@ -631,13 +802,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,ds", [(32, 128), (64, 64), (4, 16)])
-def test_cuda_ssd_decode_vs_plain(cuda_device, dtype, nh, ds):
+@pytest.mark.parametrize("nh,ds,hd", [(32, 128, 64), (64, 64, 64),
+                                      (4, 16, 64), (8, 32, 32),
+                                      (4, 128, 32)])
+def test_cuda_ssd_decode_vs_plain(cuda_device, dtype, nh, ds, hd):
     """The decode kernel against its plain version in float32 on the same
     values: the state update elementwise (1e-6), y summed in another order
     (float32: 1e-5 relative; bf16 y rounds once, 2^-9)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    B, hd = 8, 64
+    B = 8
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=cuda_device)
@@ -665,12 +838,18 @@ def test_cuda_ssd_decode_vs_plain(cuda_device, dtype, nh, ds):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,L,nh,hd,ds", [
     (8, 256, 256, 32, 64, 128), (8, 64, 64, 64, 64, 64),
-    (2, 200, 100, 8, 32, 16), (1, 70, 35, 4, 64, 32)])
+    (2, 200, 100, 8, 32, 16), (1, 70, 35, 4, 64, 32),
+    (1, 1, 1, 32, 64, 128), (1, 17, 17, 32, 64, 128),
+    (1, 232, 232, 32, 64, 128), (1, 256, 256, 64, 64, 64),
+    (1, 232, 232, 64, 64, 64), (2, 34, 17, 64, 64, 64),
+    (1, 17, 17, 4, 32, 16), (3, 232, 232, 4, 32, 128)])
 def test_cuda_ssd_intra_chunk_vs_plain(cuda_device, dtype, B, S, L, nh, hd,
                                        ds):
     """The intra-chunk kernel against its plain version in float32 on the
-    same values (b/c in ``dtype``): float32 sums in another order, within
-    1e-4 of the output's scale."""
+    same values (b/c in ``dtype``: bf16 the mma kernel, float32 the FMA
+    kernel): float32 sums in another order, within 1e-4 of the output's
+    scale; ragged chunks (1, 17, 232) and zamba2's 64 heads of d_state 64
+    included."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     xdt = torch.randn(B, S, nh, hd, generator=g, device=cuda_device) * 0.1
     la = -torch.rand(B, S, nh, generator=g, device=cuda_device) * 0.2
@@ -681,6 +860,32 @@ def test_cuda_ssd_intra_chunk_vs_plain(cuda_device, dtype, B, S, L, nh, hd,
     for got, want in zip(outs, refs):
         scale = want.abs().max().item()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_cuda_ssd_intra_chunk_cum_and_strided_rows(cuda_device, dtype,
+                                                   offset):
+    """b/c as slices of one conv output (strided rows, as the engines
+    pass them; offset 3 leaves bf16 rows unaligned, which the wrapper
+    copies): the outputs match the plain version and the kernel's cum
+    matches torch.cumsum per chunk."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    B, S, L, nh, hd, ds = 2, 464, 232, 8, 64, 64
+    xdt = torch.randn(B, S, nh, hd, generator=g, device=cuda_device) * 0.1
+    la = -torch.rand(B, S, nh, generator=g, device=cuda_device) * 0.2
+    xbc = torch.randn(B, S, 2 * ds + 16, generator=g,
+                      device=cuda_device).to(dtype)
+    b, c = xbc[..., offset:offset + ds], xbc[..., offset + ds:offset + 2 * ds]
+    outs = sops.ssd_intra_chunk_cum(xdt, la, b, c, L)
+    refs = ssd_intra_chunk_ref(xdt, la, b.float(), c.float(), L)
+    cum = torch.cumsum(la.reshape(B, S // L, L, nh), dim=2).reshape(B, S, nh)
+    for got, want in zip(outs, (*refs, cum)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert sops.PLANS["ssd_intra_chunk"]["route"] == (
+        "mma" if dtype == torch.bfloat16 else "fma")
 
 
 @pytest.mark.cuda
