@@ -110,9 +110,10 @@ Phases, each printing one JSON line:
              step, staleness within the gate).
 11. ssd kernels — the SSD decode step (8 slots, hd 64, nh 32 / ds 128 and
              nh 64 / ds 64) and the SSD intra-chunk block (8 rows x chunk
-             256 at both models' widths, and x 64; and the paged engine's
+             256 at both models' widths, and x 64; the paged engine's
              own shapes, one row of 256 and a ragged one of 232 at both
-             widths) on bf16 inputs (xdt and
+             widths; the dense generate's 16 rows of 4 chunks of 256 at
+             both widths) on bf16 inputs (xdt and
              state float32) against their plain versions in float32 on the
              same values, with wrong references the tolerance must fail
              (decode: the decay left out; intra-chunk: the diagonal j = i
@@ -120,7 +121,8 @@ Phases, each printing one JSON line:
              parts without its lo products); the intra-chunk kernel's
              in-chunk cumsum (which the scan uses) against torch.cumsum;
              the decode kernel in place under a mask leaves masked rows
-             untouched; each timed beside its bound and its plain version
+             untouched; each timed as the path calls it (the intra-chunk
+             kernel writing cum) beside its bound and its plain version
              (no single library call computes either); each record gives
              the wrapper's launch plan.
 12. ssm serving — mamba2-370m (48 SSM layers) and zamba2-1.2b (32 SSM
@@ -2356,20 +2358,23 @@ def phase_training_f32(torch):
 # ------------------------------------------------------------ SSM / hybrid
 # The two SSD kernels at the serving shapes of both families: decode at 8
 # slots, hd 64, (nh, ds) = (32, 128) for mamba2-370m and (64, 64) for
-# zamba2-1.2b; the intra-chunk block (model, rows, chunk, nh, ds) at 8 rows
-# x chunk 256 and 8 x 64, and at the shapes the paged engine launches: one
-# prefilling slot's row, a full chunk of 256 (most of its launches) or a
-# ragged tail (232: the last chunk of a 1000-token prompt). The kernels
-# line carries the 1 x 256 mamba2 shape.
+# zamba2-1.2b; the intra-chunk block (model, rows, length S, chunk, nh, ds)
+# at 8 rows x chunk 256 and 8 x 64, at the shapes the paged engine
+# launches: one prefilling slot's row, a full chunk of 256 (most of its
+# launches) or a ragged tail (232: the last chunk of a 1000-token prompt),
+# and at the dense generate's prefill: 16 rows padded to 1024, 4 chunks of
+# 256. The kernels line carries the 1 x 256 mamba2 shape.
 SSD_DECODE_SHAPES = (("mamba2-370m", 32, 128), ("zamba2-1.2b", 64, 64))
-SSD_INTRA_SHAPES = (("mamba2-370m", 8, 256, 32, 128),
-                    ("mamba2-370m", 8, 64, 32, 128),
-                    ("zamba2-1.2b", 8, 256, 64, 64),
-                    ("mamba2-370m", 1, 256, 32, 128),
-                    ("mamba2-370m", 1, 232, 32, 128),
-                    ("zamba2-1.2b", 1, 256, 64, 64),
-                    ("zamba2-1.2b", 1, 232, 64, 64))
-SSD_INTRA_LINE = ("mamba2-370m", 1, 256)
+SSD_INTRA_SHAPES = (("mamba2-370m", 8, 256, 256, 32, 128),
+                    ("mamba2-370m", 8, 64, 64, 32, 128),
+                    ("zamba2-1.2b", 8, 256, 256, 64, 64),
+                    ("mamba2-370m", 1, 256, 256, 32, 128),
+                    ("mamba2-370m", 1, 232, 232, 32, 128),
+                    ("zamba2-1.2b", 1, 256, 256, 64, 64),
+                    ("zamba2-1.2b", 1, 232, 232, 64, 64),
+                    ("mamba2-370m", 16, 1024, 256, 32, 128),
+                    ("zamba2-1.2b", 16, 1024, 256, 64, 64))
+SSD_INTRA_LINE = ("mamba2-370m", 1, 256, 256)
 SSD_SLOTS, SSD_HD = 8, 64
 # softplus'd dt of the test operands: log-uniform in [1e-3, 0.5]
 LOG_DT_LO, LOG_DT_HI = math.log(1e-3), math.log(0.5)
@@ -2410,17 +2415,17 @@ def _ssd_decode_inputs(torch, g, nh, ds):
     return state, x, dt, a_log, b, c
 
 
-def _ssd_intra_inputs(torch, g, B, L, nh, ds):
+def _ssd_intra_inputs(torch, g, B, S, nh, ds):
     """Intra-chunk operands as ssd_scan gives them: xdt = x * dt and la =
     -dt * A in float32 (x bf16 values, dt log-uniform in [1e-3, 0.5], A in
     [1, 16]), b / c bf16 slices of one conv output (strided rows)."""
     hd = SSD_HD
-    x = torch.randn(B, L, nh, hd, generator=g, device="cuda").to(
+    x = torch.randn(B, S, nh, hd, generator=g, device="cuda").to(
         torch.bfloat16).float()
-    u = torch.rand(B, L, nh, generator=g, device="cuda")
+    u = torch.rand(B, S, nh, generator=g, device="cuda")
     dt = torch.exp(u * (LOG_DT_HI - LOG_DT_LO) + LOG_DT_LO)
     A = 1.0 + 15.0 * torch.rand(nh, generator=g, device="cuda")
-    xbc = torch.randn(B, L, 2 * ds + 8, generator=g,
+    xbc = torch.randn(B, S, 2 * ds + 8, generator=g,
                       device="cuda").to(torch.bfloat16)
     return (x * dt[..., None]).contiguous(), -dt * A, xbc[..., :ds], \
         xbc[..., ds:2 * ds]
@@ -2520,22 +2525,23 @@ def phase_ssd_kernels(torch):
         if model == "mamba2-370m":
             results["ssd_decode_step"] = rec
         emit(rec)
-    for model, B, L, nh, ds in SSD_INTRA_SHAPES:
-        xdt, la, b, c = _ssd_intra_inputs(torch, g, B, L, nh, ds)
+    for model, B, S, L, nh, ds in SSD_INTRA_SHAPES:
+        nc = S // L
+        xdt, la, b, c = _ssd_intra_inputs(torch, g, B, S, nh, ds)
         # the scan's call: the three outputs and the in-chunk cumsum
         outs = sops.ssd_intra_chunk_cum(xdt, la, b, c, L)
         plan = dict(sops.PLANS["ssd_intra_chunk"])
         b32, c32 = b.float(), c.float()
         ex_la = _exclusive_la(torch, la, L)
-        cums = [torch.cumsum(t.reshape(B, 1, L, nh), dim=2).reshape(B, L, nh)
-                for t in (la, ex_la)]
+        cums = [torch.cumsum(t.reshape(B, nc, L, nh), dim=2).reshape(
+            B, S, nh) for t in (la, ex_la)]
         refs = (*ssd_intra_chunk_ref(xdt, la, b32, c32, L), cums[0])
         excl = (*ssd_intra_chunk_ref(xdt, ex_la, b32, c32, L), cums[1])
         diag = (c32 * b32).sum(-1)[..., None, None] * xdt
         hi_only = _ssd_intra_hi_only(torch, xdt, la, b32, c32, L)
         rec = {"phase": "kernel", "name": "ssd_intra_chunk", "model": model,
                "dtype": "bfloat16 b/c, float32 xdt/la",
-               "shape": {"B": B, "S": L, "chunk": L, "nh": nh, "hd": SSD_HD,
+               "shape": {"B": B, "S": S, "chunk": L, "nh": nh, "hd": SSD_HD,
                          "ds": ds}, "library": "none (no single call)",
                "plan": plan}
         sub = {}
@@ -2555,19 +2561,22 @@ def phase_ssd_kernels(torch):
             sub[k]["max_abs_err"] for k in ("y_intra", "s_local", "cdec")))
         del refs, excl, diag, hi_only
         pairs = L * (L + 1) // 2
-        nbytes = (4 * (2 * xdt.numel() + la.numel())
+        # xdt and la read, y and cum written; b / c read; s_local and cdec
+        # written per chunk
+        nbytes = (4 * (2 * xdt.numel() + 2 * la.numel())
                   + 2 * (b.numel() + c.numel())
-                  + 4 * (B * nh * SSD_HD * ds + B * nh))
+                  + 4 * B * nc * (nh * SSD_HD * ds + nh))
         # C_i . B_j once per (batch, chunk); y and s_local per head; float32
         # operands, so the tensor cores' TF32 rate bounds the operations
-        flops = 2 * B * (pairs * ds + nh * pairs * SSD_HD
-                         + nh * L * SSD_HD * ds)
+        flops = 2 * B * nc * (pairs * ds + nh * pairs * SSD_HD
+                              + nh * L * SSD_HD * ds)
+        # timed as the scan calls it: the three outputs and cum
         rec.update(_times(
             torch, timer, "tf32", nbytes, flops,
-            lambda: sops.ssd_intra_chunk(xdt, la, b, c, L),
+            lambda: sops.ssd_intra_chunk_cum(xdt, la, b, c, L),
             lambda: ssd_intra_chunk_ref(xdt, la, b, c, L), None,
             iters=20, plain_iters=5))
-        if (model, B, L) == SSD_INTRA_LINE:
+        if (model, B, S, L) == SSD_INTRA_LINE:
             results["ssd_intra_chunk"] = rec
         emit(rec)
     emit({"phase": "ssd_kernels_done",

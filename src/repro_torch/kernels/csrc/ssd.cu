@@ -44,8 +44,8 @@
 //     y[i]    = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
 //     s_local = sum_j exp(cum_last - cum_j) xdt_j (x) B_j      [hd, ds]
 //     cdec    = exp(cum_last)
-//   all float32, as the TPU kernel writes them; optionally cum itself
-//   ([B,S,nh], which the chunked scan needs for its inter-chunk term).
+//   all float32, as the TPU kernel writes them, and cum itself ([B,S,nh],
+//   which the chunked scan needs for its inter-chunk term).
 //
 // What bounds it: bytes. At 8 rows x 256 x 32 heads x 64 it moves ~43 MB
 //   (xdt and y in float32, s_local 8.4 MB), 0.013 ms at 3.35 TB/s, against
@@ -81,7 +81,7 @@
 //     converted by the whole block.
 //   - cum: each block scans la over the rows it needs (two rows a thread,
 //     a warp scan and the warp totals); the first s block of a (chunk,
-//     head) writes cdec and, when asked, cum.
+//     head) writes cdec and cum.
 //   What holds it back now: at one row, the latency of each stage's chain
 //   (two barriers, the conversion, dependent mma and exps) with ~3 warps a
 //   scheduler, and the fixed cost of a launch of ~400 blocks on cold
@@ -102,6 +102,17 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr unsigned FULL = 0xffffffffu;
+
+// Each kernel's launch geometry has one owner, the plan functions below,
+// which the launches use and the C plan entries export (kernel.py reads
+// them; tests/test_torch_ssm.py checks its mirrors against them).
+// Intra-chunk: threads, blocks, y tiles, s blocks, rows of a y tile, keys of
+// a step, then the bf16 kernel's d_state columns of an s block and of a
+// warp, or the float32 kernel's hd rows of a state tile and 0.
+constexpr int INTRA_PLAN_LEN = 8;
+// Decode: threads a block, blocks, threads in all, state rows a thread,
+// lanes a row.
+constexpr int DECODE_PLAN_LEN = 5;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -183,6 +194,20 @@ __global__ void __launch_bounds__(DEC_NT) ssd_decode_kernel(
 #pragma unroll
     for (int r = 0; r < DEC_RPT; ++r)
       if (p0 + r < hd) y[(size_t)pair * hd + p0 + r] = from_f<T>(acc[r]);
+}
+
+cudaError_t decode_plan(int B, int nh, int hd, int ds, int* out) {
+  if (B <= 0 || nh <= 0 || hd <= 0 ||
+      (ds != 16 && ds != 32 && ds != 64 && ds != 128))
+    return cudaErrorInvalidValue;
+  const long long n_threads =
+      (long long)B * nh * ((hd + DEC_RPT - 1) / DEC_RPT) * (ds / 4);
+  if (n_threads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int p[DECODE_PLAN_LEN] = {
+      DEC_NT, (int)((n_threads + DEC_NT - 1) / DEC_NT), (int)n_threads,
+      DEC_RPT, ds / 4};
+  for (int i = 0; i < DECODE_PLAN_LEN; ++i) out[i] = p[i];
+  return cudaSuccess;
 }
 
 template <typename T, int DS>
@@ -537,8 +562,7 @@ __global__ void __launch_bounds__(NT) intra_kernel(
   const float last = cum_s[L - 1];
   if (col0 == 0) {
     if (tid == 0) cdec[(size_t)bc * nh + h] = expf(last);
-    if (cum_out != nullptr)
-      for (int i = tid; i < L; i += NT) cum_out[(row0 + i) * nh + h] = cum_s[i];
+    for (int i = tid; i < L; i += NT) cum_out[(row0 + i) * nh + h] = cum_s[i];
   }
   __syncthreads();  // cum_s read; it becomes w_j = exp(cum_last - cum_j)
   for (int i = tid; i < MAX_L; i += NT)
@@ -598,12 +622,26 @@ __global__ void __launch_bounds__(NT) intra_kernel(
   }
 }
 
+// The launch plan (IntraPlan): one block per (chunk, head) and slot, n_y
+// y tiles of TR rows then NS s blocks of SC d_state columns (SW a warp).
+template <int HD, int DS>
+cudaError_t plan(int B, int S, int nh, int L, int* out) {
+  using K = Cfg<HD, DS>;
+  const int n_y = (L + TR - 1) / TR;
+  const long long blocks = (long long)B * (S / L) * nh * (n_y + K::NS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int p[INTRA_PLAN_LEN] = {NT, (int)blocks, n_y, K::NS, TR, KS, K::SC,
+                                 K::SW};
+  for (int i = 0; i < INTRA_PLAN_LEN; ++i) out[i] = p[i];
+  return cudaSuccess;
+}
+
 template <int HD, int DS>
 cudaError_t launch(const void* xdt, const void* la, const void* b,
                    const void* c, void* y, void* s_local, void* cdec,
-                   void* cum, int B, int S, int nh, int L, int n_y, int n_s,
-                   long long sb_b, long long sb_s, long long sc_b,
-                   long long sc_s, cudaStream_t stream) {
+                   void* cum, int B, int S, int nh, int L, long long sb_b,
+                   long long sb_s, long long sc_b, long long sc_s,
+                   cudaStream_t stream) {
   using K = Cfg<HD, DS>;
   auto kern = intra_kernel<HD, DS>;
   static bool attr_set = false;  // once per instantiation (benign race)
@@ -613,16 +651,15 @@ cudaError_t launch(const void* xdt, const void* la, const void* b,
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const int nc = S / L;
-  const long long blocks = (long long)B * nc * nh * (n_y + K::NS);
-  if (n_y != (L + TR - 1) / TR || n_s != K::NS || blocks > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, NT, K::SMEM, stream>>>(
+  int p[INTRA_PLAN_LEN];
+  cudaError_t err = plan<HD, DS>(B, S, nh, L, p);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)p[1], NT, K::SMEM, stream>>>(
       static_cast<const float*>(xdt), static_cast<const float*>(la),
       static_cast<const bf16*>(b), static_cast<const bf16*>(c),
       static_cast<float*>(y), static_cast<float*>(s_local),
-      static_cast<float*>(cdec), static_cast<float*>(cum), S, nh, L, nc, n_y,
-      sb_b, sb_s, sc_b, sc_s);
+      static_cast<float*>(cdec), static_cast<float*>(cum), S, nh, L, S / L,
+      p[2], sb_b, sb_s, sc_b, sc_s);
   return cudaGetLastError();
 }
 
@@ -826,7 +863,7 @@ __global__ void intra_kernel(const float* __restrict__ xdt,
     const int hh = e / L, j = e % L;
     w_s[hh * MAX_L + j] =
         expf(cum_s[hh * MAX_L + L - 1] - cum_s[hh * MAX_L + j]);
-    if (p0 == 0 && cum_out != nullptr)
+    if (p0 == 0)
       cum_out[(row0 + j) * nh + h0 + hh] = cum_s[hh * MAX_L + j];
   }
   if (p0 == 0 && tid < HB)
@@ -875,12 +912,28 @@ __global__ void intra_kernel(const float* __restrict__ xdt,
     }
 }
 
+// The launch plan (IntraPlan): grid (nh / HB, B * nc, n_y + n_s), n_y row
+// tiles of TR rows, n_s state tiles of state_rows<DS>() rows of hd.
+template <int HD, int DS>
+cudaError_t plan(int B, int S, int nh, int L, int* out) {
+  const int n_y = (L + TR - 1) / TR;
+  const int n_s = (HD + state_rows<DS>() - 1) / state_rows<DS>();
+  const long long blocks = (long long)(nh / HB) * B * (S / L) * (n_y + n_s);
+  if (nh % HB != 0 || (long long)B * (S / L) > 65535 ||
+      blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int p[INTRA_PLAN_LEN] = {NT,  (int)blocks,        n_y, n_s,
+                                 TR,  TJ, state_rows<DS>(), 0};
+  for (int i = 0; i < INTRA_PLAN_LEN; ++i) out[i] = p[i];
+  return cudaSuccess;
+}
+
 template <int HD, int DS>
 cudaError_t launch(const void* xdt, const void* la, const void* b,
                    const void* c, void* y, void* s_local, void* cdec,
-                   void* cum, int B, int S, int nh, int L, int n_y, int n_s,
-                   long long sb_b, long long sb_s, long long sc_b,
-                   long long sc_s, cudaStream_t stream) {
+                   void* cum, int B, int S, int nh, int L, long long sb_b,
+                   long long sb_s, long long sc_b, long long sc_s,
+                   cudaStream_t stream) {
   constexpr int smem = smem_floats<HD, DS>() * (int)sizeof(float);
   auto kern = intra_kernel<HD, DS>;
   static bool attr_set = false;  // once per instantiation (benign race)
@@ -890,16 +943,16 @@ cudaError_t launch(const void* xdt, const void* la, const void* b,
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  if (nh % HB != 0 || n_y != (L + TR - 1) / TR ||
-      n_s != (HD + state_rows<DS>() - 1) / state_rows<DS>())
-    return cudaErrorInvalidValue;
-  dim3 grid(nh / HB, B * (S / L), n_y + n_s);
+  int p[INTRA_PLAN_LEN];
+  cudaError_t err = plan<HD, DS>(B, S, nh, L, p);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nh / HB, B * (S / L), p[2] + p[3]);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(xdt), static_cast<const float*>(la),
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<float*>(y), static_cast<float*>(s_local),
       static_cast<float*>(cdec), static_cast<float*>(cum), S, nh, L, S / L,
-      n_y, sb_b, sb_s, sc_b, sc_s);
+      p[2], sb_b, sb_s, sc_b, sc_s);
   return cudaGetLastError();
 }
 
@@ -907,28 +960,29 @@ cudaError_t launch(const void* xdt, const void* la, const void* b,
 
 }  // namespace
 
+// The decode kernel's plan for state [B,nh,hd,ds] into out[DECODE_PLAN_LEN].
+extern "C" int ssd_decode_plan(int B, int nh, int hd, int ds, int* out) {
+  return (int)decode_plan(B, nh, hd, ds, out);
+}
+
 // dtype (of x, b, c): 0 = float32, 1 = bfloat16; alog_dtype likewise.
 // state, new_state [B,nh,hd,ds] and y [B,nh,hd] contiguous and 16-byte
 // aligned (new_state may be state); ds in {16, 32, 64, 128}; x rows at
 // batch stride sxb with the nh*hd entries contiguous; b, c rows at batch
 // strides sbb, scb, ds entries contiguous; dt [B,nh] contiguous; update
-// null or uint8 [B]. n_blocks is the wrapper's plan (kernel.py:
-// decode_plan), checked here.
+// null or uint8 [B].
 extern "C" int ssd_decode_step(const void* state, const void* x,
                                const void* dt, const void* a_log,
                                const void* b, const void* c,
                                const void* update, void* new_state, void* y,
                                int B, int nh, int hd, int ds, long long sxb,
                                long long sbb, long long scb, int dtype,
-                               int alog_dtype, int n_blocks, void* stream) {
-  if (B <= 0 || nh <= 0 || hd <= 0 || (dtype != 0 && dtype != 1) ||
+                               int alog_dtype, void* stream) {
+  int p[DECODE_PLAN_LEN];
+  if ((dtype != 0 && dtype != 1) ||
       (reinterpret_cast<uintptr_t>(state) |
-       reinterpret_cast<uintptr_t>(new_state)) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long n_threads =
-      (long long)B * nh * ((hd + DEC_RPT - 1) / DEC_RPT) * (ds / 4);
-  if (n_threads > 0x7fffffffLL ||
-      n_blocks != (int)((n_threads + DEC_NT - 1) / DEC_NT))
+       reinterpret_cast<uintptr_t>(new_state)) % 16 != 0 ||
+      decode_plan(B, nh, hd, ds, p) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* upd = static_cast<const uint8_t*>(update);
@@ -937,12 +991,12 @@ extern "C" int ssd_decode_step(const void* state, const void* x,
     return (int)(dtype == 0                                                    \
                      ? launch_decode<float, DS>(                               \
                            state, x, dt, a_log, alog_dtype, b, c, upd,         \
-                           new_state, y, (int)n_threads, n_blocks, nh, hd,     \
-                           sxb, sbb, scb, st)                                  \
+                           new_state, y, p[2], p[1], nh, hd, sxb, sbb, scb,    \
+                           st)                                                 \
                      : launch_decode<bf16, DS>(                                \
                            state, x, dt, a_log, alog_dtype, b, c, upd,         \
-                           new_state, y, (int)n_threads, n_blocks, nh, hd,     \
-                           sxb, sbb, scb, st))
+                           new_state, y, p[2], p[1], nh, hd, sxb, sbb, scb,    \
+                           st))
   DECODE_LAUNCH(16);
   DECODE_LAUNCH(32);
   DECODE_LAUNCH(64);
@@ -951,22 +1005,54 @@ extern "C" int ssd_decode_step(const void* state, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
+// Returns SPACE::FN<hd, ds>(...) for b/c dtype 0 (f32) or 1 (tc).
+#define INTRA_CASE(SPACE, FN, HD, DS, ...) \
+  if (hd == HD && ds == DS) return (int)SPACE::FN<HD, DS>(__VA_ARGS__)
+#define INTRA_SPACE(SPACE, FN, ...)            \
+  INTRA_CASE(SPACE, FN, 32, 16, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 32, 32, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 32, 64, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 32, 128, __VA_ARGS__); \
+  INTRA_CASE(SPACE, FN, 64, 16, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 64, 32, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 64, 64, __VA_ARGS__);  \
+  INTRA_CASE(SPACE, FN, 64, 128, __VA_ARGS__)
+#define INTRA_DISPATCH(FN, ...)           \
+  if (dtype == 0) {                       \
+    INTRA_SPACE(f32, FN, __VA_ARGS__);    \
+  } else if (dtype == 1) {                \
+    INTRA_SPACE(tc, FN, __VA_ARGS__);     \
+  }                                       \
+  return (int)cudaErrorInvalidValue
+
+static bool intra_shape_ok(int B, int S, int nh, int chunk) {
+  return B > 0 && S > 0 && nh > 0 && chunk > 0 && chunk <= tc::MAX_L &&
+         S % chunk == 0;
+}
+
+// The intra-chunk kernel's plan (dtype, hd, ds as below) for [B,S] rows of
+// nh heads in chunks of `chunk` into out[INTRA_PLAN_LEN].
+extern "C" int ssd_intra_chunk_plan(int dtype, int B, int S, int nh, int hd,
+                                    int ds, int chunk, int* out) {
+  if (!intra_shape_ok(B, S, nh, chunk)) return (int)cudaErrorInvalidValue;
+  INTRA_DISPATCH(plan, B, S, nh, chunk, out);
+}
+
 // dtype (of b, c): 0 = float32 (f32), 1 = bfloat16 (tc); hd in {32, 64};
 // ds in {16, 32, 64, 128}; chunk L <= 256 divides S; float32 needs nh % 4
 // == 0; bf16 needs b, c and their row strides 16-byte aligned. xdt
 // [B,S,nh,hd] (16-byte aligned) and la [B,S,nh] contiguous float32; b, c
 // at (batch, row) strides with ds entries contiguous; outputs y
-// [B,S,nh,hd], s_local [B,nc,nh,hd,ds], cdec [B,nc,nh] contiguous float32,
-// and cum [B,S,nh] (the in-chunk inclusive cumsum of la) unless null.
-// n_y, n_s: the wrapper's plan (kernel.py:intra_plan), checked here.
+// [B,S,nh,hd], s_local [B,nc,nh,hd,ds], cdec [B,nc,nh] and cum [B,S,nh]
+// (the in-chunk inclusive cumsum of la, which the chunked scan uses)
+// contiguous float32.
 extern "C" int ssd_intra_chunk(const void* xdt, const void* la, const void* b,
                                const void* c, void* y, void* s_local,
                                void* cdec, void* cum, int B, int S, int nh,
                                int hd, int ds, int chunk, long long sb_b,
                                long long sb_s, long long sc_b, long long sc_s,
-                               int dtype, int n_y, int n_s, void* stream) {
-  if (B <= 0 || chunk <= 0 || chunk > tc::MAX_L || S % chunk != 0 || S <= 0 ||
-      nh <= 0)
+                               int dtype, void* stream) {
+  if (!intra_shape_ok(B, S, nh, chunk) || cum == nullptr)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 &&
       ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(c)) %
@@ -974,24 +1060,9 @@ extern "C" int ssd_intra_chunk(const void* xdt, const void* la, const void* b,
        (sb_b | sb_s | sc_b | sc_s) % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define INTRA_LAUNCH(SPACE, HD, DS)                                             \
-  if (hd == HD && ds == DS)                                                  \
-  return (int)SPACE::launch<HD, DS>(xdt, la, b, c, y, s_local, cdec, cum, B, S, \
-                                 nh, chunk, n_y, n_s, sb_b, sb_s, sc_b, sc_s, \
-                                 st)
-#define INTRA_DS(SPACE, HD)    \
-  INTRA_LAUNCH(SPACE, HD, 16); \
-  INTRA_LAUNCH(SPACE, HD, 32); \
-  INTRA_LAUNCH(SPACE, HD, 64); \
-  INTRA_LAUNCH(SPACE, HD, 128)
-  if (dtype == 0) {
-    INTRA_DS(f32, 32);
-    INTRA_DS(f32, 64);
-  } else if (dtype == 1) {
-    INTRA_DS(tc, 32);
-    INTRA_DS(tc, 64);
-  }
-#undef INTRA_DS
-#undef INTRA_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  INTRA_DISPATCH(launch, xdt, la, b, c, y, s_local, cdec, cum, B, S, nh,
+                 chunk, sb_b, sb_s, sc_b, sc_s, st);
 }
+#undef INTRA_DISPATCH
+#undef INTRA_SPACE
+#undef INTRA_CASE

@@ -21,72 +21,68 @@ HEAD_DIMS = (32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 HEADS_PER_BLOCK = {0: 4, 1: 1}
 
-# the bf16 intra-chunk kernel (namespace tc): 4 warps a block; a y tile is
-# Y_ROWS rows (2 strips of 16), walked in stages of KEY_STAGE keys (2 halves
-# of 16, one per warp pair); an s block takes all hd rows of s_local for a
-# slice of d_state
-TC_THREADS = 128
-Y_ROWS = 32
-KEY_STAGE = 32
-# the float32 intra-chunk kernel (namespace f32): 4 heads and 256 threads a
-# block, row tiles of 64
-F32_THREADS = 256
-F32_ROWS = 64
 
-# the decode kernel: DECODE_ROWS state rows a thread, one float4 column of
-# each; d_state / 4 lanes make a row
-DECODE_THREADS = 128
-DECODE_ROWS = 4
+@functools.lru_cache(maxsize=None)
+def _plan_fns():
+    lib = _build.load("ssd")
+    intra, decode = lib.ssd_intra_chunk_plan, lib.ssd_decode_plan
+    intra.argtypes = [_I] * 7 + [_P]
+    decode.argtypes = [_I] * 4 + [_P]
+    intra.restype = decode.restype = _I
+    return intra, decode
 
 
+@functools.lru_cache(maxsize=None)
 def intra_plan(code: int, B: int, S: int, L: int, nh: int, hd: int,
                ds: int) -> dict:
     """The launch plan of the intra-chunk kernel for b/c of dtype ``code``
     (0 float32, 1 bf16) at [B, S] rows in chunks of ``L``, ``nh`` heads of
-    ``hd``, d_state ``ds``; the C entry checks ``y_tiles`` and
-    ``s_blocks`` against its own.
+    ``hd``, d_state ``ds``, as csrc/ssd.cu computes and launches it
+    (``ssd_intra_chunk_plan``; its library is built on first call).
 
-    bf16 (``route`` "mma"): one block per (chunk, head, slot); slots
-    0 .. y_tiles - 1 are y tiles of Y_ROWS rows, the last tile first, and
+    bf16 (``route`` "mma"): ``blocks`` blocks of ``threads``, one per
+    (chunk, head, slot); slots 0 .. y_tiles - 1 are y tiles of ``y_rows``
+    rows walked in stages of ``key_stage`` keys, the last tile first, and
     the s_blocks slots that follow take ``s_cols`` columns of d_state each,
     ``warp_s_cols`` a warp. Block k is slot k // P of (chunk, head) pair
-    k % P, P = B * nc * nh.
+    k % P, P = B * nc * nh. float32 (``route`` "fma"): y_tiles row tiles
+    and s_blocks state tiles of ``s_rows`` rows of hd for each (4 heads,
+    chunk).
     """
-    nc = S // L
+    out = (ctypes.c_int * 8)()
+    if _plan_fns()[0](code, B, S, nh, hd, ds, L, out) != 0:
+        raise ValueError(f"ssd_intra_chunk: no plan for dtype code {code}, "
+                         f"B {B}, S {S}, chunk {L}, nh {nh}, hd {hd}, "
+                         f"ds {ds}")
+    threads, blocks, n_y, n_s, y_rows, key_stage, s_w, warp_s = out
+    plan = {"threads": threads, "blocks": blocks, "y_tiles": n_y,
+            "s_blocks": n_s, "y_rows": y_rows, "key_stage": key_stage}
     if code == 1:
-        n_sub = 64 // hd  # warps side by side over d_state
-        warp_cols = min(32, ds // n_sub)
-        s_cols = warp_cols * n_sub
-        n_y, n_s = -(-L // Y_ROWS), ds // s_cols
-        return {"route": "mma", "threads": TC_THREADS, "y_tiles": n_y,
-                "s_blocks": n_s, "y_rows": Y_ROWS, "key_stage": KEY_STAGE,
-                "s_cols": s_cols, "warp_s_cols": warp_cols,
-                "blocks": B * nc * nh * (n_y + n_s)}
-    rows = (F32_THREADS // ds) * 8  # hd rows of a state tile
-    n_y, n_s = -(-L // F32_ROWS), -(-hd // rows)
-    return {"route": "fma", "threads": F32_THREADS, "y_tiles": n_y,
-            "s_blocks": n_s, "y_rows": F32_ROWS, "s_rows": rows,
-            "blocks": (nh // HEADS_PER_BLOCK[0]) * B * nc * (n_y + n_s)}
+        return {"route": "mma", **plan, "s_cols": s_w, "warp_s_cols": warp_s}
+    return {"route": "fma", **plan, "s_rows": s_w}
 
 
+@functools.lru_cache(maxsize=None)
 def decode_plan(B: int, nh: int, hd: int, ds: int) -> dict:
-    """The decode kernel's launch plan: ``units`` threads, each DECODE_ROWS
-    rows x one float4 column of one (slot, head), in ``blocks`` blocks of
-    DECODE_THREADS; the C entry checks ``blocks``."""
-    lanes = ds // 4
-    n = B * nh * -(-hd // DECODE_ROWS) * lanes
-    return {"threads": DECODE_THREADS, "rows_per_thread": DECODE_ROWS,
-            "lanes_per_row": lanes, "units": n,
-            "blocks": -(-n // DECODE_THREADS)}
+    """The decode kernel's launch plan, as csrc/ssd.cu computes and
+    launches it (``ssd_decode_plan``): ``units`` threads, each
+    ``rows_per_thread`` rows x one float4 column of one (slot, head),
+    ``lanes_per_row`` to a row, in ``blocks`` blocks of ``threads``."""
+    out = (ctypes.c_int * 5)()
+    if _plan_fns()[1](B, nh, hd, ds, out) != 0:
+        raise ValueError(f"ssd_decode_step: no plan for B {B}, nh {nh}, "
+                         f"hd {hd}, ds {ds}")
+    return dict(zip(("threads", "blocks", "units", "rows_per_thread",
+                     "lanes_per_row"), out))
 
 
 @functools.lru_cache(maxsize=None)
 def decode_fn():
     """ssd_decode_step(state, x, dt, a_log, b, c, update, new_state, y, B,
-    nh, hd, ds, sxb, sbb, scb, dtype, alog_dtype, n_blocks, stream) ->
-    cudaError_t; ``update`` may be null."""
+    nh, hd, ds, sxb, sbb, scb, dtype, alog_dtype, stream) -> cudaError_t;
+    ``update`` may be null."""
     f = _build.load("ssd").ssd_decode_step
-    f.argtypes = [_P] * 9 + [_I] * 4 + [_L] * 3 + [_I] * 3 + [_P]
+    f.argtypes = [_P] * 9 + [_I] * 4 + [_L] * 3 + [_I] * 2 + [_P]
     f.restype = _I
     return f
 
@@ -94,9 +90,8 @@ def decode_fn():
 @functools.lru_cache(maxsize=None)
 def intra_chunk_fn():
     """ssd_intra_chunk(xdt, la, b, c, y, s_local, cdec, cum, B, S, nh, hd,
-    ds, chunk, sb_b, sb_s, sc_b, sc_s, dtype, n_y, n_s, stream) ->
-    cudaError_t; ``cum`` may be null."""
+    ds, chunk, sb_b, sb_s, sc_b, sc_s, dtype, stream) -> cudaError_t."""
     f = _build.load("ssd").ssd_intra_chunk
-    f.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 4 + [_I] * 3 + [_P]
+    f.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 4 + [_I] + [_P]
     f.restype = _I
     return f

@@ -7,8 +7,8 @@ have no backward (the JAX package trains SSM stacks through XLA autodiff
 of its jnp scan and has no backward kernel): on a CUDA tensor that
 requires a gradient, under autograd, the ops raise. ``LAUNCHES`` counts
 each kernel's launches, and nothing else; ``PLANS`` holds the launch plan
-(``kernel.decode_plan`` / ``kernel.intra_plan``) of each kernel's last
-launch.
+(``kernel.decode_plan`` / ``kernel.intra_plan``, read from the CUDA
+library that computes it) of each kernel's last launch.
 """
 from __future__ import annotations
 
@@ -135,7 +135,7 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
         b.data_ptr(), c.data_ptr(),
         None if update is None else update.data_ptr(), new.data_ptr(),
         y.data_ptr(), B, nh, hd, ds, x.stride(0), b.stride(0), c.stride(0),
-        code, alog_code, plan["blocks"], _stream(x))
+        code, alog_code, _stream(x))
     if err != 0:
         raise RuntimeError(f"ssd_decode_step: CUDA error {err}")
     LAUNCHES["ssd_decode_step"] += 1
@@ -191,10 +191,9 @@ def _rows_16b(t: torch.Tensor) -> bool:
             and t.stride(1) % 8 == 0)
 
 
-def _intra_chunk_card(xdt, la, b, c, chunk: int, want_cum: bool):
+def _intra_chunk_card(xdt, la, b, c, chunk: int):
     """Launch the intra-chunk kernel on CUDA tensors: (y_intra, s_local,
-    cdec, cum), cum the in-chunk inclusive cumsum of la [B,S,nh] float32
-    when ``want_cum``, else None."""
+    cdec, cum), cum the in-chunk inclusive cumsum of la [B,S,nh] float32."""
     code = check_intra_chunk_inputs(xdt, la, b, c, chunk)
     if code == 1:
         # the mma kernel loads b/c rows 16 bytes at a time; other strides
@@ -209,13 +208,12 @@ def _intra_chunk_card(xdt, la, b, c, chunk: int, want_cum: bool):
     s_local = torch.empty((B, nc, nh, hd, ds), dtype=torch.float32,
                           device=xdt.device)
     cdec = torch.empty((B, nc, nh), dtype=torch.float32, device=xdt.device)
-    cum = torch.empty_like(la) if want_cum else None
+    cum = torch.empty_like(la)
     err = kernel.intra_chunk_fn()(
         xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), s_local.data_ptr(), cdec.data_ptr(),
-        None if cum is None else cum.data_ptr(), B, S, nh, hd, ds, chunk,
-        b.stride(0), b.stride(1), c.stride(0), c.stride(1), code,
-        plan["y_tiles"], plan["s_blocks"], _stream(xdt))
+        cum.data_ptr(), B, S, nh, hd, ds, chunk, b.stride(0), b.stride(1),
+        c.stride(0), c.stride(1), code, _stream(xdt))
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk: CUDA error {err}")
     LAUNCHES["ssd_intra_chunk"] += 1
@@ -229,10 +227,11 @@ def ssd_intra_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
     """Intra-chunk SSD block: xdt [B,S,nh,hd] float32, la [B,S,nh] float32,
     b/c [B,S,ds]; ``chunk`` divides S -> (y_intra [B,S,nh,hd], s_local
     [B,nc,nh,hd,ds], cdec [B,nc,nh]), all float32 (see ``ref.py``). bf16
-    b/c take the tensor-core kernel, float32 b/c the FMA kernel."""
+    b/c take the tensor-core kernel, float32 b/c the FMA kernel; on the
+    card this is ``ssd_intra_chunk_cum``'s launch with its cum dropped."""
     if not _on_card("ssd_intra_chunk", xdt, la, b, c):
         return ssd_intra_chunk_ref(xdt, la, b, c, chunk)
-    return _intra_chunk_card(xdt, la, b, c, chunk, False)[:3]
+    return _intra_chunk_card(xdt, la, b, c, chunk)[:3]
 
 
 def ssd_intra_chunk_cum(xdt: torch.Tensor, la: torch.Tensor,
@@ -247,7 +246,7 @@ def ssd_intra_chunk_cum(xdt: torch.Tensor, la: torch.Tensor,
         cum = torch.cumsum(la.reshape(B, S // chunk, chunk, nh), dim=2)
         return (*ssd_intra_chunk_ref(xdt, la, b, c, chunk),
                 cum.reshape(B, S, nh))
-    return _intra_chunk_card(xdt, la, b, c, chunk, True)
+    return _intra_chunk_card(xdt, la, b, c, chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

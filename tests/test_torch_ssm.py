@@ -269,6 +269,38 @@ def test_ssd_scan_differentiates_on_the_cpu():
 
 
 # ----------------------------------------------------------- params / block
+# Mirrors of csrc/ssd.cu's launch geometry, which the CUDA library owns
+# (kernel.intra_plan / decode_plan read it from there);
+# test_cuda_ssd_plans_match_the_mirrors holds these to it on the card.
+# bf16 intra-chunk (namespace tc): 4 warps a block, y tiles of 32 rows (2
+# strips of 16) walked in stages of 32 keys (2 halves of 16); an s block
+# takes all hd rows of s_local for a slice of d_state. Decode: 4 state rows
+# x one float4 column a thread, 128 threads a block.
+_TC_THREADS, _Y_ROWS, _KEY_STAGE = 128, 32, 32
+_DECODE_THREADS, _DECODE_ROWS = 128, 4
+
+
+def _intra_plan(B: int, S: int, L: int, nh: int, hd: int, ds: int) -> dict:
+    """The bf16 intra-chunk kernel's plan (``tc::plan``)."""
+    n_sub = 64 // hd  # warps side by side over d_state
+    warp_cols = min(32, ds // n_sub)
+    s_cols = warp_cols * n_sub
+    n_y, n_s = -(-L // _Y_ROWS), ds // s_cols
+    return {"route": "mma", "threads": _TC_THREADS,
+            "blocks": B * (S // L) * nh * (n_y + n_s), "y_tiles": n_y,
+            "s_blocks": n_s, "y_rows": _Y_ROWS, "key_stage": _KEY_STAGE,
+            "s_cols": s_cols, "warp_s_cols": warp_cols}
+
+
+def _decode_plan(B: int, nh: int, hd: int, ds: int) -> dict:
+    """The decode kernel's plan (``decode_plan``)."""
+    lanes = ds // 4
+    n = B * nh * -(-hd // _DECODE_ROWS) * lanes
+    return {"threads": _DECODE_THREADS, "blocks": -(-n // _DECODE_THREADS),
+            "units": n, "rows_per_thread": _DECODE_ROWS,
+            "lanes_per_row": lanes}
+
+
 def _intra_block(plan: dict, k: int, nc: int, nh: int) -> dict:
     """What block ``k`` of the bf16 plan computes (csrc/ssd.cu,
     ``tc::intra_kernel``):
@@ -294,13 +326,13 @@ def _intra_warp_work(plan: dict, blk: dict, warp: int, L: int, hd: int
     stage (the rows' own keys j <= i are kept by the mask); an s warp: its
     s_local ``p`` rows and ``s`` columns (first, end) over all L keys."""
     if "tile" in blk:
-        r0 = blk["tile"] * sk.Y_ROWS
+        r0 = blk["tile"] * _Y_ROWS
         rs, kh = warp & 1, warp >> 1
         i0 = r0 + 16 * rs
-        n_keys = min(L, r0 + sk.Y_ROWS)
+        n_keys = min(L, r0 + _Y_ROWS)
         keys = []
-        for st in range(-(-n_keys // sk.KEY_STAGE)):
-            kj0 = st * sk.KEY_STAGE + 16 * kh
+        for st in range(-(-n_keys // _KEY_STAGE)):
+            kj0 = st * _KEY_STAGE + 16 * kh
             if kj0 < n_keys and kj0 <= i0 + 15:
                 keys.append((kj0, min(kj0 + 16, L)))
         return {"rows": (i0, min(i0 + 16, L)), "keys": keys}
@@ -314,11 +346,11 @@ def _decode_unit(t: int, nh: int, hd: int, ds: int) -> dict:
     """What thread ``t`` of the decode kernel updates: slot, head, state
     rows (first, end) and d_state columns (first, end)."""
     lanes = ds // 4
-    per_pair = -(-hd // sk.DECODE_ROWS) * lanes
+    per_pair = -(-hd // _DECODE_ROWS) * lanes
     pair, u = divmod(t, per_pair)
-    p0, q = u // lanes * sk.DECODE_ROWS, u % lanes
+    p0, q = u // lanes * _DECODE_ROWS, u % lanes
     return {"slot": pair // nh, "head": pair % nh,
-            "p": (p0, min(p0 + sk.DECODE_ROWS, hd)), "s": (4 * q, 4 * q + 4)}
+            "p": (p0, min(p0 + _DECODE_ROWS, hd)), "s": (4 * q, 4 * q + 4)}
 
 
 # shapes (B rows, chunk L) of the paged engine's one-row launches, the
@@ -329,8 +361,8 @@ _PLAN_SHAPES = [(1, 1), (1, 17), (1, 232), (1, 256), (8, 64), (8, 256)]
 @pytest.mark.parametrize("B,L", _PLAN_SHAPES)
 def test_intra_chunk_plan_covers_every_pair_once(B, L):
     """The bf16 intra-chunk kernel's launch plan, walked as the kernel
-    walks it (``_intra_block`` / ``_intra_warp_work``, mirrors of
-    csrc/ssd.cu's tc::intra_kernel): every (batch, head, row i, key j <= i)
+    walks it (``_intra_plan``, ``_intra_block`` / ``_intra_warp_work``:
+    mirrors of csrc/ssd.cu's tc::plan and tc::intra_kernel): every (batch, head, row i, key j <= i)
     pair of y is multiplied by exactly one warp, every s_local (head, p, s)
     is written by exactly one warp, and cdec by one block, for every (hd,
     ds) the kernel takes and 4, 32 and 64 heads. Rows and keys past L are
@@ -339,9 +371,9 @@ def test_intra_chunk_plan_covers_every_pair_once(B, L):
     for hd in sk.HEAD_DIMS:
         for ds in sk.STATE_DIMS:
             for nh in (4, 32, 64):
-                plan = sk.intra_plan(1, B, L, L, nh, hd, ds)
-                assert plan["y_tiles"] * sk.Y_ROWS >= L > (
-                    plan["y_tiles"] - 1) * sk.Y_ROWS
+                plan = _intra_plan(B, L, L, nh, hd, ds)
+                assert plan["y_tiles"] * _Y_ROWS >= L > (
+                    plan["y_tiles"] - 1) * _Y_ROWS
                 pairs = np.zeros((B, nh, L, L), np.uint8)
                 s_seen = np.zeros((B, nh, hd, ds), np.uint8)
                 cdec = np.zeros((B, nh), np.int32)
@@ -368,7 +400,7 @@ def test_intra_chunk_plan_covers_every_pair_once(B, L):
                 assert (s_seen == 1).all(), (hd, ds, nh)
                 assert (cdec == 1).all(), (hd, ds, nh)
     # more than one chunk: blocks of every (row, chunk, head) once
-    plan = sk.intra_plan(1, 2, 200, 100, 4, 64, 128)
+    plan = _intra_plan(2, 200, 100, 4, 64, 128)
     seen = np.zeros((2, 2, 4, plan["y_tiles"] + plan["s_blocks"]), np.int32)
     for k in range(plan["blocks"]):
         blk = _intra_block(plan, k, 2, 4)
@@ -380,7 +412,8 @@ def test_intra_chunk_plan_covers_every_pair_once(B, L):
 
 def test_decode_plan_covers_every_state_element_once():
     """The decode kernel's plan, walked as the kernel walks it
-    (``_decode_unit``, a mirror of csrc/ssd.cu's ssd_decode_kernel):
+    (``_decode_plan`` / ``_decode_unit``, mirrors of csrc/ssd.cu's
+    decode_plan and ssd_decode_kernel):
     every (slot, head, p, s) of the state is updated by exactly one
     thread, for d_state 16-128 and head dims 32 and 64; the threads of one
     row are whole segments of lanes (the segmented shuffle), and the plan's
@@ -388,7 +421,7 @@ def test_decode_plan_covers_every_state_element_once():
     B, nh = 3, 5
     for hd in (32, 64):
         for ds in sk.STATE_DIMS:
-            plan = sk.decode_plan(B, nh, hd, ds)
+            plan = _decode_plan(B, nh, hd, ds)
             lanes = plan["lanes_per_row"]
             assert 32 % lanes == 0 and plan["units"] % lanes == 0
             assert (plan["blocks"] - 1) * plan["threads"] < plan["units"] \
@@ -842,14 +875,15 @@ def test_cuda_ssd_decode_vs_plain(cuda_device, dtype, nh, ds, hd):
     (1, 1, 1, 32, 64, 128), (1, 17, 17, 32, 64, 128),
     (1, 232, 232, 32, 64, 128), (1, 256, 256, 64, 64, 64),
     (1, 232, 232, 64, 64, 64), (2, 34, 17, 64, 64, 64),
-    (1, 17, 17, 4, 32, 16), (3, 232, 232, 4, 32, 128)])
+    (1, 17, 17, 4, 32, 16), (3, 232, 232, 4, 32, 128),
+    (16, 1024, 256, 32, 64, 128), (16, 1024, 256, 64, 64, 64)])
 def test_cuda_ssd_intra_chunk_vs_plain(cuda_device, dtype, B, S, L, nh, hd,
                                        ds):
     """The intra-chunk kernel against its plain version in float32 on the
     same values (b/c in ``dtype``: bf16 the mma kernel, float32 the FMA
     kernel): float32 sums in another order, within 1e-4 of the output's
     scale; ragged chunks (1, 17, 232) and zamba2's 64 heads of d_state 64
-    included."""
+    included, and the dense path's 16 rows of 4 chunks of 256."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     xdt = torch.randn(B, S, nh, hd, generator=g, device=cuda_device) * 0.1
     la = -torch.rand(B, S, nh, generator=g, device=cuda_device) * 0.2
@@ -886,6 +920,26 @@ def test_cuda_ssd_intra_chunk_cum_and_strided_rows(cuda_device, dtype,
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
     assert sops.PLANS["ssd_intra_chunk"]["route"] == (
         "mma" if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_plans_match_the_mirrors(cuda_device):
+    """The plans the CUDA library launches are the ones the coverage tests
+    above walk: the bf16 intra-chunk plan at their shapes, dense prefill's
+    and the dense path's, and the decode plan at theirs."""
+    shapes = [(B, L, L) for B, L in _PLAN_SHAPES] + [(2, 200, 100),
+                                                      (16, 1024, 256)]
+    for B, S, L in shapes:
+        for hd in sk.HEAD_DIMS:
+            for ds in sk.STATE_DIMS:
+                for nh in (4, 32, 64):
+                    assert sk.intra_plan(1, B, S, L, nh, hd, ds) == \
+                        _intra_plan(B, S, L, nh, hd, ds), (B, S, L, hd, ds)
+    for B, nh in ((3, 5), (8, 32), (8, 64)):
+        for hd in (32, 64):
+            for ds in sk.STATE_DIMS:
+                assert sk.decode_plan(B, nh, hd, ds) == \
+                    _decode_plan(B, nh, hd, ds), (B, nh, hd, ds)
 
 
 @pytest.mark.cuda
