@@ -38,9 +38,22 @@ Phases, each printing one JSON line:
              run of the same requests gives the prefill / decode split, and
              a profiled run the device time by kernel and the device's idle
              share.
-5. training kernels — the fused A-3PO loss (forward and backward, float32,
-             T = 2300 and 1001, the clip active on both sides, the iw cap
-             active, the mask partial; 1e-6 relative, clip_tok exact) and the
+5. training kernels — an empty kernel's launch (the floor); the reduced
+             A-3PO kernels (the objective of a minibatch, its metrics and
+             its gradient, one launch each way; float32, T = 2300, 1001 and
+             2^20, the clip active on both sides, the iw cap active, the
+             mask partial, as the training step calls it, with the KL and
+             entropy terms set, and with the largest iw on masked-out
+             tokens): c, the clipped count and the iw extremes bit for bit,
+             every other sum within 1e-5 x sum(|terms|) / denom, which
+             references that drop the last block's last pass, take iw_max
+             over masked-out tokens or divide by T must fail; two launches
+             bit-equal; the backward within 1e-6 relative; each timed
+             beside its bound, its plain version, the launch floor and, on
+             the same inputs, the parent's path (the per-token kernel, then
+             eager reductions and autograd's backward) and the new op's,
+             and at T 2300 and 2^20 at other grids; the per-token kernels
+             (T = 2300 and 1001; 1e-6 relative, clip_tok exact); the
              token logprob + entropy (forward at the training step's shapes,
              T 2300, d 1536, V 151,936, bf16, through the TMA + wgmma
              kernel, and at V 1000 in float32 through the first design,
@@ -68,7 +81,10 @@ Phases, each printing one JSON line:
              transfer per step, both training kernels launched and every
              logprob forward through the wgmma kernel; then one
              `recompute` step from the state before step 2, for the A-3PO
-             against recompute step time.
+             against recompute step time; the profile of a step, with the
+             device kernels of one A3PO.loss + backward at B 4 x T 575
+             (at most 16, each reduced kernel once) beside the parent's
+             path's.
 7. training_float32 — the same step in float32 at full width and 4 layers,
              once through the kernels and once from a copy of the state with
              both training ops on their plain versions: every metric and
@@ -139,8 +155,9 @@ Phases, each printing one JSON line:
 13. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
-             peak memory, dense decode's with its split plan), then the
-             contract line (last):
+             peak memory, dense decode's with its split plan, the A-3PO
+             loss's with the launch floor and the parent's and the new
+             op's path times), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -210,6 +227,24 @@ TRAIN_T = 2300
 # fused A-3PO loss kernel vs its plain version: both round every operation
 # as PyTorch's float32 ops do, so only expf may differ (by an ulp or two)
 A3PO_RTOL = 1e-6
+# The reduced A-3PO kernels at the training step's T, an odd T and a long
+# minibatch (128 x 8192 tokens). Against the plain version: c, the clipped
+# count and the iw extremes bit for bit; every other slot is a float32 sum
+# in another order, held within A3PO_SUM_RTOL x sum(|terms|) / denom (the
+# loss and the KL are signed sums that cancel, so a tolerance relative to
+# the result has no floor).
+A3PO_TS = (TRAIN_T, 1001, 2 ** 20)
+A3PO_SUM_RTOL = 1e-5
+# the cases held at each T: (kl_coef, entropy_coef, iw_cap, masked-out
+# behav shift). "path" is the training step's call (entropy reported, no
+# regularizer: the timed case); "uncapped" puts the largest iw on
+# masked-out tokens, so that an iw_max over them shows
+A3PO_CASES = {"path": (0.0, 0.0, 5.0, 0.0),
+              "regularized": (0.1, 0.01, 5.0, 0.0),
+              "uncapped": (0.0, 0.0, 1e4, -8.0)}
+# float32 operations a token (an exp counted as one): the token pass and
+# its seven sums and two extremes; the backward's product and sum
+A3PO_FWD_OPS, A3PO_BWD_OPS = 36, 3
 # logprob kernel vs its plain version in float32 on the same values: the
 # kernel accumulates in float32 in another order. logp ~ -12 at V = 151,936
 # and one 128-entry vocab tile moves logz by ~128 / V ~ 8e-4, so this
@@ -1314,6 +1349,249 @@ def _rel_check(torch, name, outs, refs, exact=()):
     return worst
 
 
+def _a3po_case(torch, g, T, case):
+    """The reduced op's operands [logp, behav, alpha, adv, mask, entropy]
+    at T for one of ``A3PO_CASES``, and its keywords."""
+    kl_coef, entropy_coef, iw_cap, shift = A3PO_CASES[case]
+    lp, bl, al, adv, mask = _a3po_inputs(torch, g, T)
+    bl = torch.where(mask > 0, bl, bl + shift)
+    ent = torch.rand(T, generator=g, device="cuda") * 5
+    return [lp, bl, al, adv, mask, ent], dict(
+        clip_eps=0.2, iw_cap=iw_cap, kl_coef=kl_coef,
+        entropy_coef=entropy_coef)
+
+
+def _bits(torch, t):
+    return t.contiguous().reshape(-1).view(torch.int32)
+
+
+def _hold_a3po_reduced(torch, args, kw, wrong=()):
+    """Hold the reduced forward and backward kernels against their plain
+    versions on ``args``: c bit for bit, the loss and metric vector within
+    ``A3PO_SUM_RTOL`` of their sums' size (exact where that is 0), two
+    launches bit-equal, the backward within ``A3PO_RTOL``; and each named
+    wrong reference (``last_block_dropped``: the tokens of the last
+    block's last pass left out; ``iw_max_over_masked_out``: the iw maximum
+    over every token; ``divides_by_t``: the means over T, not the mask's
+    sum) must fail the tolerance. Returns the record."""
+    from repro_torch.kernels.a3po_loss import kernel as akernel
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.a3po_loss.ref import (
+        REDUCED_KEYS,
+        a3po_loss_ref,
+        a3po_reduced_bwd_ref,
+        a3po_reduced_ref,
+        a3po_reduced_scale,
+    )
+    loss, metrics, coef = aops._reduced_forward_kernel(*args, **kw)
+    out = torch.cat([loss[None], metrics])
+
+    def ref_of(a):
+        r_loss, r_metrics, r_coef = a3po_reduced_ref(*a, **kw)
+        return torch.cat([r_loss[None], r_metrics]), r_coef
+
+    ref, r_coef = ref_of(args)
+    scale = torch.cat([t.reshape(-1) for t in a3po_reduced_scale(*args,
+                                                                 **kw)])
+
+    def over(r):
+        """worst |out - r| over A3PO_SUM_RTOL x scale (NaN on both sides
+        agrees; any error where the scale is 0 is inf)."""
+        err = (out - r).abs()
+        err = torch.where(torch.isnan(out) & torch.isnan(r), 0.0, err)
+        ratio = torch.where(err == 0, 0.0, err / (A3PO_SUM_RTOL * scale))
+        return ratio.max().item()
+
+    T = args[0].numel()
+    worst = over(ref)
+    keys = ("loss",) + REDUCED_KEYS
+    fin = torch.isfinite(ref) & torch.isfinite(out)
+    rec = {"T": T, "entropy": args[5] is not None, **kw,
+           "blocks": akernel.reduced_blocks(
+               T, torch.cuda.get_device_properties(0).multi_processor_count),
+           "max_abs_err": (out - ref)[fin].abs().max().item(),
+           "worst_err_over_tol": worst,
+           "values": dict(zip(keys, out.tolist())),
+           "tol": {"sum_rtol": A3PO_SUM_RTOL,
+                   "exact": ["coef", "iw_max", "iw_min", "clipped_tokens"]}}
+    if not worst <= 1.0 or not torch.equal(coef, r_coef):
+        raise AssertionError(f"a3po reduced forward vs plain: {rec} "
+                             f"{dict(zip(keys, (out - ref).tolist()))}")
+    wrongs = {}
+    for name in wrong:
+        if name == "last_block_dropped":
+            block, pas = akernel.reduced_walk(T, rec["blocks"])
+            last = block == rec["blocks"] - 1
+            last &= pas == pas[last].max()
+            a = list(args)
+            a[4] = torch.where(last.to(a[4].device), 0.0, a[4])
+            wrongs[name] = ref_of(a)[0]
+        elif name == "iw_max_over_masked_out":
+            r = ref.clone()
+            r[1 + REDUCED_KEYS.index("iw_max")] = a3po_loss_ref(
+                *args[:5], clip_eps=kw["clip_eps"],
+                iw_cap=kw["iw_cap"])[2].max()
+            wrongs[name] = r
+        elif name == "divides_by_t":
+            r = ref.clone()
+            fac = ref[1 + REDUCED_KEYS.index("denom")] / T
+            for k in ("loss", "iw_mean", "ratio_mean", "clipped_frac", "kl",
+                      "entropy"):
+                r[keys.index(k)] *= fac
+            wrongs[name] = r
+    rec["wrong_kernel_err_over_tol"] = {k: over(r) for k, r in wrongs.items()}
+    loose = [k for k, v in rec["wrong_kernel_err_over_tol"].items()
+             if not v > 1.0]
+    if loose:
+        raise AssertionError(f"a3po reduced: the tolerance passes a kernel "
+                             f"{loose}: {rec}")
+    again = aops._reduced_forward_kernel(*args, **kw)
+    rec["bit_equal_twice"] = all(
+        torch.equal(_bits(torch, a), _bits(torch, b)) for a, b in zip(
+            (loss, metrics, coef), again))
+    if not rec["bit_equal_twice"]:
+        raise AssertionError(f"a3po reduced: two launches differ: {rec}")
+    g = torch.randn((), device="cuda") * 2
+    bkw = dict(kl_coef=kw["kl_coef"], entropy_coef=kw["entropy_coef"],
+               with_entropy=args[5] is not None)
+    g_logp, g_ent = aops._reduced_backward_kernel(g.reshape(1), metrics,
+                                                  coef, args[4], **bkw)
+    r_logp, r_ent = a3po_reduced_bwd_ref(
+        g, ref[1 + REDUCED_KEYS.index("denom")], r_coef, args[4], **bkw)
+    outs, refs = [g_logp], [r_logp]
+    if r_ent is not None:
+        outs.append(g_ent)
+        refs.append(r_ent)
+    rec["bwd_max_abs_err"] = _rel_check(torch, "a3po_loss_bwd", outs, refs)
+    rec["bwd_bit_exact"] = all(torch.equal(o, r) for o, r in zip(outs,
+                                                                 refs))
+    return rec, (loss, metrics, coef, g)
+
+
+def _parent_a3po_loss(torch, logp, behav_logp, alpha, adv, mask, cfg,
+                      entropy):
+    """The A-3PO loss as the parent commit ran it: the per-token kernel
+    (``a3po_objective``), then each masked reduction and the regularizers
+    as eager ops. Timed and profiled beside the reduced op, never on the
+    path."""
+    from repro_torch.core import objective
+    from repro_torch.kernels.a3po_loss import ops as aops
+    logp = logp.float()
+    behav_logp = behav_logp.float()
+    if alpha.dim() == logp.dim() - 1:
+        alpha = alpha[..., None]
+    alpha = torch.broadcast_to(alpha, logp.shape).float().detach()
+    loss_tok, clip_tok, iw, ratio = aops.a3po_objective(
+        logp, behav_logp, alpha, adv, mask, clip_eps=cfg.clip_eps,
+        iw_cap=cfg.behav_weight_cap)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    metrics = {
+        "iw_max": objective._masked_max(iw, mask),
+        "iw_min": objective._masked_min(iw, mask),
+        "iw_mean": objective.masked_mean(iw, mask),
+        "ratio_mean": objective.masked_mean(ratio, mask),
+        "clipped_tokens": clip_tok.sum(),
+        "clipped_frac": clip_tok.sum() / denom,
+    }
+    if entropy is not None:
+        metrics["entropy"] = objective.masked_mean(entropy, mask)
+    anchor = alpha * behav_logp + (1.0 - alpha) * logp
+    return objective.apply_regularizers(loss_tok.sum() / denom, metrics,
+                                        logp, anchor, mask, cfg, entropy)
+
+
+def _a3po_reduced_kernels(torch, timer, g):
+    """The reduced A-3PO kernels: held at every T of ``A3PO_TS`` in every
+    case of ``A3PO_CASES`` with the wrong references that must fail, and
+    timed in the path's case at each T beside their bounds, their plain
+    versions and, as "before", the parent's path on the same inputs (the
+    per-token kernel, then eager reductions; its backward through
+    autograd) against the new op's (``fused_a3po_loss`` forward, then
+    autograd's backward); beside an empty kernel's launch (the floor), one
+    PyTorch reduction over the forward's bytes (``stream_ms``) and the
+    grids a cluster or another plan would take. Returns the kernels
+    line's two records (T 2300)."""
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core import objective
+    from repro_torch.kernels.a3po_loss import kernel as akernel
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.a3po_loss.ref import (
+        a3po_reduced_bwd_ref,
+        a3po_reduced_ref,
+    )
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = timer.ms(lambda: akernel.empty_launch_fn()(stream), iters=50)
+    emit({"phase": "kernel", "name": "launch_floor", "ms": floor,
+          "what": "an empty kernel <<<1, 32>>> under Timer"})
+    results = {}
+    wrong = {"path": ("last_block_dropped", "divides_by_t"),
+             "regularized": ("last_block_dropped", "divides_by_t"),
+             "uncapped": ("iw_max_over_masked_out", "last_block_dropped",
+                          "divides_by_t")}
+    for T in A3PO_TS:
+        for case in A3PO_CASES:
+            args, kw = _a3po_case(torch, g, T, case)
+            rec, (loss, metrics, coef, gs) = _hold_a3po_reduced(
+                torch, args, kw, wrong[case])
+            rec = dict({"phase": "kernel", "name": "a3po_loss_reduced",
+                        "case": case}, **rec)
+            if case != "path":
+                emit(rec)
+                continue
+            ent = args[5] is not None
+            bkw = dict(kl_coef=0.0, entropy_coef=0.0, with_entropy=ent)
+            fwd = _times(
+                torch, timer, "float32", (24 + 4 * ent) * T + 4 * 10,
+                A3PO_FWD_OPS * T,
+                lambda: aops._reduced_forward_kernel(*args, **kw),
+                lambda: a3po_reduced_ref(*args, **kw), None)
+            bwd = _times(
+                torch, timer, "float32", 8 * T + 4 * 2, A3PO_BWD_OPS * T,
+                lambda: aops._reduced_backward_kernel(
+                    gs.reshape(1), metrics, coef, args[4], **bkw),
+                lambda: a3po_reduced_bwd_ref(gs, metrics[aops.DENOM], coef,
+                                             args[4], **bkw), None)
+            # the objective end to end, the parent's path and the new op's
+            cfg = RLConfig()
+            paths = {}
+            for label, fn in (("parent", functools.partial(
+                    _parent_a3po_loss, torch)), ("reduced", lambda *a: (
+                        objective.fused_a3po_loss(*a)))):
+                x = args[0].clone().requires_grad_(True)
+                loss_p, _ = fn(x, *args[1:5], cfg, args[5])
+                paths[label] = {
+                    "fwd_ms": timer.ms(lambda: fn(x, *args[1:5], cfg,
+                                                  args[5])),
+                    "bwd_ms": timer.ms(lambda: torch.autograd.grad(
+                        loss_p, x, retain_graph=True))}
+            # one PyTorch reduction that streams the forward's bytes (a
+            # yardstick of the card's streaming rate under this timer)
+            buf = torch.empty(fwd["bytes"] // 4, device="cuda")
+            fwd["stream_ms"] = timer.ms(lambda: buf.sum())
+            del buf
+            rec.update(fwd=fwd, bwd=bwd, paths=paths, launch_floor_ms=floor)
+            if T in (TRAIN_T, 2 ** 20):
+                rec["plan_alternatives_ms"] = {
+                    b: timer.ms(lambda: aops._reduced_forward_kernel(
+                        *args, **kw, blocks=b))
+                    for b in ((1, 2, 4) if T == TRAIN_T
+                              else (8, 132, 256, 528))}
+            emit(rec)
+            if T == TRAIN_T:
+                shape = {"T": T, "entropy": ent}
+                for name, t, err in (("a3po_loss", fwd, rec["max_abs_err"]),
+                                     ("a3po_loss_bwd", bwd,
+                                      rec["bwd_max_abs_err"])):
+                    side = "fwd" if name == "a3po_loss" else "bwd"
+                    results[name] = dict(
+                        {k: v for k, v in t.items() if k != "stream_ms"},
+                        max_abs_err=err, shape=shape,
+                        launch_floor_ms=floor,
+                        parent_path_ms=paths["parent"][side + "_ms"],
+                        path_ms=paths["reduced"][side + "_ms"])
+    return results
+
+
 def phase_training_kernels(torch):
     from repro_torch.kernels.a3po_loss import ops as aops
     from repro_torch.kernels.a3po_loss.ref import (
@@ -1328,8 +1606,10 @@ def phase_training_kernels(torch):
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(1)
-    results = {}
-    # ---- fused A-3PO loss, forward and backward
+    results = _a3po_reduced_kernels(torch, timer, g)
+    # ---- the per-token kernels of the Pallas kernel's own function,
+    # forward and backward (off the training path; at T 2300 timed beside
+    # the reduced kernels, the parent's path ran them)
     for T in (TRAIN_T, 1001):
         args = _a3po_inputs(torch, g, T)
         adv, mask = args[3], args[4]
@@ -1348,23 +1628,22 @@ def phase_training_kernels(torch):
         aops.a3po_objective(x, *args[1:])[0].backward(gl)
         ref_g = a3po_loss_bwd_ref(gl, clip, iw, ratio, adv, mask)
         err_b = _rel_check(torch, "a3po_loss_bwd", [x.grad], [ref_g])
-        rec = {"phase": "kernel", "name": "a3po_loss", "T": T,
+        rec = {"phase": "kernel", "name": "a3po_loss_per_token", "T": T,
                "cover": cover, "max_abs_err": err_f,
                "bwd_max_abs_err": err_b, "tol": {"rtol": A3PO_RTOL},
                "clip_tok_exact": True}
         if T == TRAIN_T:
-            fwd = _times(torch, timer, "float32", 9 * 4 * T, 0,
-                         lambda: aops.a3po_loss_fused(*args),
-                         lambda: a3po_loss_ref(*args, clip_eps=0.2,
-                                               iw_cap=5.0), None)
-            bwd = _times(torch, timer, "float32", 7 * 4 * T, 0,
-                         lambda: aops._backward_kernel(gl, clip, iw, ratio,
-                                                       adv, mask),
-                         lambda: a3po_loss_bwd_ref(gl, clip, iw, ratio, adv,
-                                                   mask), None)
-            rec.update(fwd=fwd, bwd=bwd)
-            results["a3po_loss"] = dict(fwd, max_abs_err=err_f)
-            results["a3po_loss_bwd"] = dict(bwd, max_abs_err=err_b)
+            rec["fwd"] = _times(
+                torch, timer, "float32", 9 * 4 * T, 0,
+                lambda: aops.a3po_loss_fused(*args),
+                lambda: a3po_loss_ref(*args, clip_eps=0.2, iw_cap=5.0),
+                None)
+            rec["bwd"] = _times(
+                torch, timer, "float32", 7 * 4 * T, 0,
+                lambda: aops._backward_kernel(gl, clip, iw, ratio, adv,
+                                              mask),
+                lambda: a3po_loss_bwd_ref(gl, clip, iw, ratio, adv, mask),
+                None)
         emit(rec)
 
     # ---- token logprob + entropy forward, at the step's shapes (bf16) and
@@ -1722,7 +2001,9 @@ def phase_training(torch):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     prof = _device_profile(torch, profiled_step)
-    emit(dict({"phase": "training_profile", "algo": "a3po"}, **prof))
+    emit(dict({"phase": "training_profile", "algo": "a3po",
+               "a3po_loss_device_kernels": _a3po_loss_device_kernels(torch)},
+              **prof))
     a3po_s = sum(turns["a3po"]) / 2
     recompute_s = sum(turns["recompute"]) / 2
     emit({"phase": "training", "model": cfg.name, "layers": cfg.num_layers,
@@ -1735,6 +2016,83 @@ def phase_training(torch):
     del saved
     torch.cuda.empty_cache()
     return launches
+
+
+def _a3po_loss_device_kernels(torch):
+    """The device kernels (and copies, fills) that one ``A3PO.loss`` and
+    its backward launch at one minibatch of the training step (B 4 x T
+    575, per-token version stamps, an entropy that carries a gradient),
+    from ``torch.profiler``, beside the parent's path on the same inputs
+    (the alpha schedule, the per-token kernel, eager reductions, autograd's
+    backward). The reduced path must launch each reduced kernel once and
+    at most 16 in all. A profiler session after the first in a process
+    can miss the first device events it should see (8 of them in one run
+    on an NVIDIA H100), so each session first launches 16 empty kernels
+    and counts only what starts after the last marker it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.algorithms import LossInputs, get_algorithm
+    from repro_torch.kernels.a3po_loss import kernel as akernel
+    markers = 16
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shape = (4, TRAIN_T // 4)
+
+    def u():
+        return torch.rand(shape, generator=g, device="cuda")
+    lp, ent = -u() * 3, u() * 5
+    batch = LossInputs(
+        advantages=torch.randn(shape, generator=g, device="cuda"),
+        mask=(u() > 0.3).float(), behav_logp=-u() * 3,
+        versions=torch.randint(0, 3, shape, generator=g, device="cuda",
+                               dtype=torch.int32),
+        current_version=torch.tensor(3, dtype=torch.int32, device="cuda"))
+    rl, algo = RLConfig(), get_algorithm("a3po")
+
+    def reduced(x, e):
+        algo.loss(x, batch._replace(entropy=e), rl)[0].backward()
+
+    def parent(x, e):
+        alpha = algo.alpha(rl, versions=batch.versions,
+                           current_version=batch.current_version)
+        _parent_a3po_loss(torch, x, batch.behav_logp, alpha,
+                          batch.advantages, batch.mask, rl, e)[0].backward()
+
+    out = {}
+    for label, fn in (("reduced", reduced), ("parent", parent)):
+        for profiled in (False, True):  # a warm-up call, then the count
+            x = lp.clone().requires_grad_(True)
+            e = ent.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            if not profiled:
+                fn(x, e)
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(markers):
+                    akernel.empty_launch_fn()(stream)
+                torch.cuda.synchronize()
+                fn(x, e)
+                torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        seen = [i for i, ev in enumerate(evs) if "empty_kernel" in ev.name]
+        if not seen:
+            raise AssertionError(f"the profiler saw no marker of {markers}")
+        evs = evs[seen[-1] + 1:]
+        out[label] = {"markers_seen": len(seen), "kernels": len(evs),
+                      "device_us": sum(ev.time_range.end
+                                       - ev.time_range.start for ev in evs),
+                      "names": sorted(ev.name[:60] for ev in evs)}
+    r = out["reduced"]
+    n_fwd = sum("a3po_reduced_kernel" in k for k in r["names"])
+    n_bwd = sum("a3po_reduced_bwd_kernel" in k for k in r["names"])
+    if r["kernels"] > 16 or n_fwd != 1 or n_bwd != 1:
+        raise AssertionError(f"A3PO.loss + backward launches: {out}")
+    return out
 
 
 # ------------------------------------------------------------- rollout, loop
@@ -1876,7 +2234,7 @@ def _capture_path(torch):
     sites = {"flash_attention": (attention, "flash_attention"),
              "decode_attention": (attention, "decode_attention_op"),
              "token_logprob_entropy": (trainer, "token_logprob_entropy"),
-             "a3po_loss": (objective, "a3po_objective"),
+             "a3po_loss": (objective, "a3po_objective_reduced"),
              "rollouts": (RolloutEngine, "generate")}
     saved = {k: getattr(m, a) for k, (m, a) in sites.items()}
 
@@ -1927,11 +2285,6 @@ def _hold_path_kernels(torch, seen):
     the inputs of its last call there (bf16 attention and logprob inputs
     against float32 plain versions, the A-3PO loss in float32), with the
     wrong references of the kernel phases. Returns the records."""
-    from repro_torch.kernels.a3po_loss import ops as aops
-    from repro_torch.kernels.a3po_loss.ref import (
-        a3po_loss_bwd_ref,
-        a3po_loss_ref,
-    )
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn import ops as fops
@@ -2008,24 +2361,15 @@ def _hold_path_kernels(torch, seen):
         recs["token_logprob_entropy"] = rec
     if "a3po_loss" in seen:
         args, kw = seen["a3po_loss"]
-        args = [a.reshape(-1).contiguous() for a in args]
-        adv, mask = args[3], args[4]
-        outs = aops.a3po_loss_fused(*args, **kw)
-        refs = a3po_loss_ref(*args, **kw)
-        _, clip, iw, ratio = refs
-        rec = {"name": "a3po_loss", "T": args[0].numel(), **kw,
-               "cover": {"clipped": int(clip.sum()),
-                         "adv_nonzero": int((adv != 0).sum()),
-                         "masked_in": int(mask.sum())},
-               "max_abs_err": _rel_check(torch, "a3po_loss", outs, refs,
-                                         exact=(1,))}
-        x = args[0].clone().requires_grad_(True)
-        g = torch.Generator(device=x.device).manual_seed(9)
-        gl = torch.randn(x.shape, generator=g, device=x.device)
-        aops.a3po_objective(x, *args[1:], **kw)[0].backward(gl)
-        rec["bwd_max_abs_err"] = _rel_check(
-            torch, "a3po_loss_bwd", [x.grad],
-            [a3po_loss_bwd_ref(gl, clip, iw, ratio, adv, mask)])
+        args = [None if a is None else a.reshape(-1).contiguous()
+                for a in args]
+        kw = {k: v for k, v in kw.items() if k != "use_kernel"}
+        rec, _ = _hold_a3po_reduced(
+            torch, args, kw, ("last_block_dropped", "divides_by_t"))
+        rec["name"] = "a3po_loss"
+        rec["cover"] = {"clipped": rec["values"]["clipped_tokens"],
+                        "adv_nonzero": int((args[3] != 0).sum()),
+                        "masked_in": rec["values"]["denom"]}
         recs["a3po_loss"] = rec
     return recs
 
@@ -2272,14 +2616,16 @@ def _plain_training_ops():
     a check: the training path itself never passes it."""
     from repro_torch.core import objective
     from repro_torch.training import trainer
-    saved = objective.a3po_objective, trainer.token_logprob_entropy
-    objective.a3po_objective = functools.partial(saved[0], use_kernel=False)
+    saved = objective.a3po_objective_reduced, trainer.token_logprob_entropy
+    objective.a3po_objective_reduced = functools.partial(saved[0],
+                                                         use_kernel=False)
     trainer.token_logprob_entropy = functools.partial(saved[1],
                                                       use_kernel=False)
     try:
         yield
     finally:
-        objective.a3po_objective, trainer.token_logprob_entropy = saved
+        objective.a3po_objective_reduced, \
+            trainer.token_logprob_entropy = saved
 
 
 def phase_training_f32(torch):
@@ -2801,6 +3147,9 @@ def main() -> int:
                 "peak_mem_gb_above_inputs"]
         if "splits" in k:
             line[-1]["splits"] = k["splits"]
+        for extra in ("launch_floor_ms", "parent_path_ms", "path_ms"):
+            if extra in k:
+                line[-1][extra] = k[extra]
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

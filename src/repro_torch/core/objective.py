@@ -10,10 +10,11 @@ One interface for the three methods the paper compares:
 
 ``resolve_alpha`` is the single dispatch point for every alpha schedule,
 including the beyond-paper ``kl_adaptive`` controller. The ``loglinear``
-surrogate runs through the fused ``kernels/a3po_loss`` kernel (an
-autograd ``Function`` with an analytic backward). ``stop_gradient`` is
-``.detach()``; masked extremes select with ``torch.where`` and +-inf, never
-by multiplying.
+objective runs through the reduced ``kernels/a3po_loss`` kernel (an
+autograd ``Function`` with an analytic backward): the surrogate, its KL
+and entropy terms and its metrics in one launch each way.
+``stop_gradient`` is ``.detach()``; masked extremes select with
+``torch.where`` and +-inf, never by multiplying.
 """
 from __future__ import annotations
 
@@ -27,7 +28,10 @@ from repro_torch.core.a3po import (
     kl_adaptive_alpha,
     staleness,
 )
-from repro_torch.kernels.a3po_loss import a3po_objective
+from repro_torch.kernels.a3po_loss import (
+    REDUCED_KEYS,
+    a3po_objective_reduced,
+)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -171,37 +175,27 @@ def fused_a3po_loss(
     cfg: RLConfig,
     entropy: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Metrics]:
-    """A-3PO decoupled loss through the fused kernel + analytic backward.
+    """A-3PO decoupled loss through the reduced kernel + analytic backward.
 
     Numerically the ``decoupled_ppo_loss`` over the log-linear anchor
     ``alpha * behav + (1 - alpha) * logp``, with interpolation, IS weight,
-    ratio, clip and masking in one pass that also yields iw and ratio.
+    ratio, clip, masking, the masked reductions of the loss and its
+    metrics and the regularizers of ``apply_regularizers`` in one pass.
     """
     logp = logp.float()
     behav_logp = behav_logp.float()
     if alpha.dim() == logp.dim() - 1:
         alpha = alpha[..., None]
     alpha = torch.broadcast_to(alpha, logp.shape).float().detach()
-    loss_tok, clip_tok, iw, ratio = a3po_objective(
-        logp, behav_logp, alpha, advantages, mask,
-        clip_eps=cfg.clip_eps, iw_cap=cfg.behav_weight_cap)
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    loss = loss_tok.sum() / denom
-    metrics: Metrics = {
-        "iw_max": _masked_max(iw, mask),
-        "iw_min": _masked_min(iw, mask),
-        "iw_mean": masked_mean(iw, mask),
-        "ratio_mean": masked_mean(ratio, mask),
-        "clipped_tokens": clip_tok.sum(),
-        "clipped_frac": clip_tok.sum() / denom,
-    }
-    if entropy is not None:
-        metrics["entropy"] = masked_mean(entropy, mask)
-    # the log-linear anchor, reconstructed for the shared KL path (the
-    # fused kernel keeps it internal)
-    anchor = alpha * behav_logp + (1.0 - alpha) * logp
-    return apply_regularizers(loss, metrics, logp, anchor, mask, cfg,
-                              entropy)
+    loss, vec = a3po_objective_reduced(
+        logp, behav_logp, alpha, advantages, mask, entropy,
+        clip_eps=cfg.clip_eps, iw_cap=cfg.behav_weight_cap,
+        kl_coef=cfg.kl_coef, entropy_coef=cfg.entropy_coef)
+    metrics: Metrics = dict(zip(REDUCED_KEYS, vec.unbind()))
+    del metrics["denom"]
+    if entropy is None:
+        del metrics["entropy"]
+    return loss, metrics
 
 
 # ------------------------------------------------------------------ dispatch

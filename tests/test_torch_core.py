@@ -236,3 +236,130 @@ def test_fused_equals_modular_decoupled_loss():
     torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-5, atol=1e-7)
     for k in m1:
         torch.testing.assert_close(m1[k], m2[k], rtol=1e-5, atol=1e-6)
+
+
+def _eager_a3po_loss(logp, behav_logp, alpha, adv, mask, cfg, entropy):
+    """The fused A-3PO loss as an eager sequence: the per-token
+    ``Function``, then each masked reduction and the regularizers as ops of
+    their own (the loss path before its reductions moved into the reduced
+    kernel)."""
+    from repro_torch.kernels.a3po_loss import a3po_objective
+    logp = logp.float()
+    behav_logp = behav_logp.float()
+    if alpha.dim() == logp.dim() - 1:
+        alpha = alpha[..., None]
+    alpha = torch.broadcast_to(alpha, logp.shape).float().detach()
+    loss_tok, clip_tok, iw, ratio = a3po_objective(
+        logp, behav_logp, alpha, adv, mask, clip_eps=cfg.clip_eps,
+        iw_cap=cfg.behav_weight_cap)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    metrics = {
+        "iw_max": objective._masked_max(iw, mask),
+        "iw_min": objective._masked_min(iw, mask),
+        "iw_mean": objective.masked_mean(iw, mask),
+        "ratio_mean": objective.masked_mean(ratio, mask),
+        "clipped_tokens": clip_tok.sum(),
+        "clipped_frac": clip_tok.sum() / denom,
+    }
+    if entropy is not None:
+        metrics["entropy"] = objective.masked_mean(entropy, mask)
+    anchor = alpha * behav_logp + (1.0 - alpha) * logp
+    return objective.apply_regularizers(loss_tok.sum() / denom, metrics,
+                                        logp, anchor, mask, cfg, entropy)
+
+
+@pytest.mark.parametrize("per_token", [False, True])
+@pytest.mark.parametrize("kl_coef,entropy_coef", [(0.0, 0.0), (0.1, 0.0),
+                                                  (0.0, 0.01), (0.1, 0.01)])
+@pytest.mark.parametrize("with_entropy", [False, True])
+def test_reduced_a3po_plain_equals_eager_sequence(per_token, kl_coef,
+                                                  entropy_coef,
+                                                  with_entropy):
+    """On the CPU the reduced op's plain version gives the eager
+    sequence's loss and metrics bit for bit, and its analytic backward
+    autograd's gradients w.r.t. logp and entropy bit for bit."""
+    b = _batch(11, per_token)
+    cfg = RLConfig(kl_coef=kl_coef, entropy_coef=entropy_coef)
+    behav, adv, mask = (torch.from_numpy(b[k]) for k in ("behav", "adv",
+                                                         "mask"))
+    alpha = objective.resolve_alpha(cfg, versions=torch.from_numpy(
+        b["versions"]), current_version=3)
+    ct = torch.tensor(0.7)
+    out = []
+    for loss_fn in (objective.fused_a3po_loss, _eager_a3po_loss):
+        x = torch.from_numpy(b["logp"].copy()).requires_grad_(True)
+        ent = (torch.from_numpy(b["entropy"].copy()).requires_grad_(True)
+               if with_entropy else None)
+        loss, m = loss_fn(x, behav, alpha, adv, mask, cfg, ent)
+        loss.backward(ct)
+        out.append((loss, m, x.grad, None if ent is None else ent.grad))
+    (l1, m1, g1, e1), (l2, m2, g2, e2) = out
+    assert torch.equal(l1, l2)
+    assert m1.keys() == m2.keys()
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+    assert torch.equal(g1, g2)
+    assert (e1 is None) == (e2 is None)
+    if e1 is not None:
+        assert torch.equal(e1, e2)
+
+
+def test_a3po_loss_dispatches_at_most_16_ops():
+    """``A3PO.loss`` + its backward at one minibatch of the training step
+    (B 4 x T 575, per-token version stamps, an entropy that carries a
+    gradient) dispatch at most 16 ops that are not aliases (view, detach,
+    expand, select, unbind launch no device kernel), the reduced op's
+    forward and backward counted as one each: the alpha schedule's ~10,
+    the op, the root cotangent and the op's backward. The eager sequence
+    dispatched 58."""
+    from torch.utils._python_dispatch import (
+        TorchDispatchMode,
+        _disable_current_modes,
+    )
+
+    from repro_torch.kernels.a3po_loss import ops as aops
+
+    seen = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def as_one(fn, name):
+        def run(*args, **kw):
+            seen.append(name)
+            with _disable_current_modes():
+                return fn(*args, **kw)
+        return run
+
+    rng = np.random.default_rng(12)
+    shape = (4, 575)
+    x = torch.from_numpy((-rng.random(shape) * 3).astype(np.float32))
+    x.requires_grad_(True)
+    ent = torch.from_numpy(rng.random(shape).astype(np.float32))
+    ent.requires_grad_(True)
+    batch = algorithms.LossInputs(
+        advantages=torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)),
+        mask=torch.from_numpy((rng.random(shape) > 0.3).astype(np.float32)),
+        behav_logp=torch.from_numpy(
+            (-rng.random(shape) * 3).astype(np.float32)),
+        versions=torch.from_numpy(
+            rng.integers(0, 3, size=shape).astype(np.int32)),
+        current_version=torch.tensor(3, dtype=torch.int32), entropy=ent)
+    saved = aops.a3po_reduced_ref, aops.a3po_reduced_bwd_ref
+    aops.a3po_reduced_ref = as_one(saved[0], "reduced_forward")
+    aops.a3po_reduced_bwd_ref = as_one(saved[1], "reduced_backward")
+    try:
+        with Count():
+            loss, _ = algorithms.get_algorithm("a3po").loss(
+                x, batch, RLConfig(entropy_coef=0.01))
+            loss.backward()
+    finally:
+        aops.a3po_reduced_ref, aops.a3po_reduced_bwd_ref = saved
+    assert seen.count("reduced_forward") == 1
+    assert seen.count("reduced_backward") == 1
+    assert len(seen) <= 16, seen
+    assert x.grad is not None and ent.grad is not None

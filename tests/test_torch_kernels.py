@@ -43,8 +43,16 @@ from repro.kernels.prefill_attn.ref import (
     paged_prefill_attention_ref as jax_prefill_ref,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.a3po_loss import kernel as akernel
 from repro_torch.kernels.a3po_loss import ops as aops
-from repro_torch.kernels.a3po_loss.ref import a3po_loss_bwd_ref, a3po_loss_ref
+from repro_torch.kernels.a3po_loss.ref import (
+    REDUCED_KEYS,
+    a3po_loss_bwd_ref,
+    a3po_loss_ref,
+    a3po_reduced_bwd_ref,
+    a3po_reduced_ref,
+    a3po_reduced_scale,
+)
 from repro_torch.kernels.decode_attn import kernel as dense_kernel
 from repro_torch.kernels.decode_attn import ops as dops
 from repro_torch.kernels.decode_attn import paged_kernel
@@ -793,6 +801,27 @@ def test_a3po_objective_grad_vs_jax(shape):
                                rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("T,n_sm,blocks", [(0, 132, 1), (1001, 132, 1),
+                                          (2300, 132, 1), (4096, 132, 1),
+                                          (4097, 132, 2), (2 ** 20, 132, 256),
+                                          (2 ** 24, 132, 264)])
+def test_reduced_plan_and_walk_cover_every_token_once(T, n_sm, blocks):
+    """The reduced forward's grid (one block up to 4096 tokens, at most two
+    an SM) and its walk: every token falls to one block and one pass, and
+    every block takes tokens, in passes of 4 x 512 a block."""
+    assert akernel.reduced_blocks(T, n_sm) == blocks
+    n = min(T, 3 * 2 ** 20)
+    block, pas = akernel.reduced_walk(n, blocks)
+    if n == 0:
+        return
+    assert 0 <= int(block.min()) and int(block.max()) < blocks
+    counts = torch.bincount(block * (int(pas.max()) + 1) + pas)
+    assert int(counts.max()) <= akernel.REDUCED_THREADS \
+        * akernel.REDUCED_UNROLL
+    if n == T:
+        assert len(torch.unique(block)) == min(blocks, -(-T // 512))
+
+
 LOGPROB_SHAPES = [(16, 32, 50), (300, 130, 1000), (64, 512, 513),
                   (7, 48, 22), (128, 64, 4096)]
 
@@ -884,6 +913,8 @@ def test_training_ops_on_cpu_count_no_launches():
     out = aops.a3po_objective(lp, bl, al, adv, mask)
     out[0].sum().backward()
     aops.a3po_loss_fused(lp.detach(), bl, al, adv, mask)
+    loss, _ = aops.a3po_objective_reduced(lp, bl, al, adv, mask, kl_coef=0.1)
+    loss.backward()
     h, w, t = _t(*_logprob_inputs(10, 9, 16, 30))
     h.requires_grad_(True)
     lpv, en = lops.token_logprob_entropy(h, w, t)
@@ -1006,6 +1037,61 @@ def test_cuda_a3po_loss_vs_plain(cuda_device, T):
                                rtol=1e-6, atol=0)
     assert (aops.LAUNCHES["forward"] - f0, aops.LAUNCHES["backward"] - b0) \
         == (1, 1)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regularized", [False, True])
+@pytest.mark.parametrize("T", [2300, 1001, 2 ** 20])
+def test_cuda_a3po_reduced_vs_plain(cuda_device, T, regularized):
+    """The reduced A-3PO forward and backward kernels against their plain
+    versions on the card, with chip_smoke.py's tolerances: c and the
+    clipped count and iw extremes bit for bit, every other sum within
+    1e-5 sum(|terms|) / denom, the backward within 1e-6 relative; the
+    clip active on both sides, the iw cap active, the mask partial, and
+    with the KL and entropy terms set; two launches bit-equal."""
+    arrays = list(_a3po_inputs(T, T)) + [
+        np.random.default_rng(T + 1).random(T).astype(np.float32)
+        if regularized else None]
+    args = [None if a is None else torch.from_numpy(a).to(cuda_device)
+            for a in arrays]
+    kw = dict(clip_eps=0.2, iw_cap=5.0, kl_coef=0.1 if regularized else 0.0,
+              entropy_coef=0.01 if regularized else 0.0)
+    mask = args[4]
+    f0, b0 = aops.LAUNCHES["forward"], aops.LAUNCHES["backward"]
+    loss, metrics, coef = aops._reduced_forward_kernel(*args, **kw)
+    r_loss, r_metrics, r_coef = a3po_reduced_ref(*args, **kw)
+    s_loss, s_metrics = a3po_reduced_scale(*args, **kw)
+    _, clip, iw, _ = a3po_loss_ref(*args[:5], clip_eps=0.2, iw_cap=5.0)
+    assert bool((iw[mask > 0] == 5.0).any()) and 0 < int(mask.sum()) < T
+    assert bool(((clip > 0) & (args[3] > 0)).any())
+    assert bool(((clip > 0) & (args[3] < 0)).any())
+    assert torch.equal(coef, r_coef)
+    err = (metrics - r_metrics).abs()
+    err = torch.where(torch.isnan(metrics) & torch.isnan(r_metrics), 0.0,
+                      err)
+    assert bool((err <= 1e-5 * s_metrics).all()), dict(
+        zip(REDUCED_KEYS, err.tolist()))
+    assert abs(float(loss - r_loss)) <= 1e-5 * float(s_loss)
+    again = aops._reduced_forward_kernel(*args, **kw)
+    for a, b in zip((loss, metrics, coef), again):
+        assert torch.equal(_bits(a), _bits(b))
+    g = torch.tensor(0.7, device=cuda_device)
+    bkw = dict(kl_coef=kw["kl_coef"], entropy_coef=kw["entropy_coef"],
+               with_entropy=regularized)
+    g_logp, g_ent = aops._reduced_backward_kernel(g.reshape(1), metrics,
+                                                  coef, mask, **bkw)
+    r_logp, r_ent = a3po_reduced_bwd_ref(g, r_metrics[aops.DENOM], r_coef,
+                                         mask, **bkw)
+    torch.testing.assert_close(g_logp, r_logp, rtol=1e-6, atol=0)
+    assert (g_ent is None) == (not regularized)
+    if regularized:
+        torch.testing.assert_close(g_ent, r_ent, rtol=1e-6, atol=0)
+    assert (aops.LAUNCHES["forward"] - f0, aops.LAUNCHES["backward"] - b0) \
+        == (2, 1)
 
 
 @pytest.mark.cuda
