@@ -152,12 +152,40 @@ Phases, each printing one JSON line:
              dense RolloutEngine.generate of the ragged prompts, held the
              same way; the traced prefill / decode split, the device idle
              share of a profiled run and peak memory.
-13. the kernels line (all ten kernels, each with the shape its ms and
+13. control plane — (a) Qwen2.5-1.5B at full width and depth (bf16,
+             layer weights x8) through the serving control plane over the
+             paged engine (8 slots, block 16, chunks of 256, horizon 8,
+             greedy, prefill budget 2, radix cache on): a warm wave of 4
+             distinct prompts (200, 511, 777, 1000 tokens), then a group
+             wave of those 4 x a group of 4, 32 new tokens, with a
+             pure-stamp publish (the same tree as version 1) after its
+             second step: every group request hits the cache at P - 1,
+             forks its shared partial tail page, and prefills one token
+             (16 in all, against 9,952 without the cache); every token and
+             behaviour logp held against forward_logits (phase 4's
+             tolerances and floors), stamps monotone with versions 0 and 1,
+             one interrupt; both paged kernels held on their last call over
+             shared pages, with wrong references one key and one page
+             short; the pool drained once the cache is cleared; the group
+             wave's host-clock seconds, prefill chunks and prefill seconds
+             with and without the cache; in float32 at 4 layers the cached
+             waves give the uncached greedy tokens, logps within 2e-4.
+             (b) `python -m repro_torch.launch.train --arch qwen2.5-1.5b
+             --steps 4 --staleness 2 --engine async` through its main()
+             (the threaded orchestrator over the control plane: block 8, 32
+             slots), seeded initial layer weights x8 and seeded Bernoulli
+             rewards: 4 records with serving snapshots, staleness within
+             the gate, one host transfer a step, both paged and both
+             training kernels launched, slots free and the pool drained,
+             and each of the four held on the inputs of its last call with
+             the wrong references of phases 3 and 5.
+14. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
              loss's with the launch floor and the parent's and the new
-             op's path times), then the contract line (last):
+             op's path times; the control plane's kernels with their
+             launches on its two paths), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -2218,24 +2246,12 @@ def _check_records(np, recs, label):
 
 
 @contextlib.contextmanager
-def _capture_path(torch):
-    """Record, from a run of the main path, what its four kernel ops were
-    last given (detached copies, strides kept) and every rollout: the ops
-    are wrapped under the names the path's modules call them by, and each
-    call goes through unchanged. Yields {op name: (args, kwargs)} with
-    ``"rollouts"``: [(params, version, RolloutBatch)] and ``"trees"``:
-    {version: a copy of its parameters when a rollout first used them}."""
-    from repro_torch.core import objective
-    from repro_torch.models import attention
-    from repro_torch.rollout.engine import RolloutEngine
-    from repro_torch.training import trainer
-    from repro_torch.training.optimizer import flatten
-    seen = {"rollouts": [], "trees": {}}
-    sites = {"flash_attention": (attention, "flash_attention"),
-             "decode_attention": (attention, "decode_attention_op"),
-             "token_logprob_entropy": (trainer, "token_logprob_entropy"),
-             "a3po_loss": (objective, "a3po_objective_reduced"),
-             "rollouts": (RolloutEngine, "generate")}
+def _capture_ops(torch, sites):
+    """Record what each op in ``sites`` ({name: (module, attribute)}) was
+    last given, as detached copies (strides kept), by wrapping it under
+    the name its caller looks it up by; every call goes through
+    unchanged."""
+    seen = {}
     saved = {k: getattr(m, a) for k, (m, a) in sites.items()}
 
     def wrap(name, fn):
@@ -2245,23 +2261,49 @@ def _capture_path(torch):
             return fn(*args, **kw)
         return run
 
-    def generate(self, params, *args, **kw):
-        version = kw.get("version", 0)
-        if version not in seen["trees"]:
-            seen["trees"][version] = {k: t.detach().clone()
-                                      for k, t in flatten(params).items()}
-        rb = saved["rollouts"](self, params, *args, **kw)
-        seen["rollouts"].append((params, version, rb))
-        return rb
-
     for name, (mod, attr) in sites.items():
-        setattr(mod, attr, generate if name == "rollouts"
-                else wrap(name, saved[name]))
+        setattr(mod, attr, wrap(name, saved[name]))
     try:
         yield seen
     finally:
         for name, (mod, attr) in sites.items():
             setattr(mod, attr, saved[name])
+
+
+@contextlib.contextmanager
+def _capture_path(torch):
+    """Record, from a run of the main path, what its four kernel ops were
+    last given (``_capture_ops``) and every rollout. Yields {op name:
+    (args, kwargs)} with ``"rollouts"``: [(params, version, RolloutBatch)]
+    and ``"trees"``: {version: a copy of its parameters when a rollout
+    first used them}."""
+    from repro_torch.core import objective
+    from repro_torch.models import attention
+    from repro_torch.rollout.engine import RolloutEngine
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import flatten
+    sites = {"flash_attention": (attention, "flash_attention"),
+             "decode_attention": (attention, "decode_attention_op"),
+             "token_logprob_entropy": (trainer, "token_logprob_entropy"),
+             "a3po_loss": (objective, "a3po_objective_reduced")}
+    plain = RolloutEngine.generate
+    with _capture_ops(torch, sites) as seen:
+        seen.update(rollouts=[], trees={})
+
+        def generate(self, params, *args, **kw):
+            version = kw.get("version", 0)
+            if version not in seen["trees"]:
+                seen["trees"][version] = {
+                    k: t.detach().clone() for k, t in flatten(params).items()}
+            rb = plain(self, params, *args, **kw)
+            seen["rollouts"].append((params, version, rb))
+            return rb
+
+        RolloutEngine.generate = generate
+        try:
+            yield seen
+        finally:
+            RolloutEngine.generate = plain
 
 
 def _logprob_top_tile_dropped(torch, h, w, t, tile=128):
@@ -2608,6 +2650,379 @@ def phase_async_rl(torch, tmp):
     del state, params, orch
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------- control plane
+# the serving control plane at Qwen2.5-1.5B: a warm wave of 4 distinct
+# prompts (none a multiple of the 16-token page), then a group wave of
+# those 4 prompts x a group of 4 that hits the radix cache at P - 1 tokens
+CP_PROMPT_LENS = (200, 511, 777, 1000)
+CP_MAX_NEW = 32
+CP_PREFILL_BUDGET = 2
+# the reference's cached-vs-uncached tolerance in float32
+# (tests/test_serving_control_plane.py: logits within 2e-4)
+CP_F32_LOGP_TOL = 2e-4
+CP_F32_LAYERS = 4
+
+
+def _cp_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(4, cfg.vocab_size, size=n).astype(np.int32)
+            for n in CP_PROMPT_LENS]
+
+
+def _cp_wave(cp, prompts, group, on_step=None):
+    """Submit each prompt ``group`` times (prompt-major) and step the
+    control plane until every request finished; returns them by rid."""
+    rids = {cp.submit(p, max_new=CP_MAX_NEW) for p in prompts
+            for _ in range(group)}
+    done, steps = [], 0
+    while len(done) < len(rids):
+        done += cp.step()
+        steps += 1
+        if on_step is not None:
+            on_step(steps)
+        if steps > 10_000:
+            raise AssertionError("control plane did not finish the wave")
+    if {r.rid for r in done} != rids:
+        raise AssertionError("control plane finished other requests")
+    return sorted(done, key=lambda r: r.rid), steps
+
+
+def _cp_counters(cp):
+    m, eng = cp.metrics, cp.engine
+    return {"prefill_chunks": m.prefill_chunks,
+            "prefill_time_s": m.prefill_time_s,
+            "prefill_tokens_computed": m.prefill_tokens_computed,
+            "prefill_chunk_tokens": eng.prefill_chunk_tokens,
+            "prefix_hit_tokens": m.prefix_hit_tokens,
+            "decode_launches": m.decode_launches,
+            "decode_time_s": m.decode_time_s,
+            "cow_forks": eng.allocator.forks}
+
+
+def _cp_serve(torch, cfg, params, prompts, *, cache):
+    """A warm wave, then the group wave with a pure-stamp publish (the same
+    tree as version 1) after its second step, through a fresh control plane
+    over the paged engine. Returns the plane, both waves and the group
+    wave's record (host-clock seconds and counter deltas)."""
+    from repro_torch.async_rl.weights import WeightStore
+    from repro_torch.rollout.continuous import ContinuousBatchingEngine
+    from repro_torch.serving import (
+        AdmissionScheduler,
+        SchedulerConfig,
+        ServingControlPlane,
+    )
+    eng = ContinuousBatchingEngine(cfg, device="cuda", **ENGINE_KW)
+    store = WeightStore(params, 0)
+    cp = ServingControlPlane(
+        eng, store, AdmissionScheduler(SchedulerConfig(d_max=100)),
+        use_prefix_cache=cache, prefill_budget=CP_PREFILL_BUDGET)
+    warm, _ = _cp_wave(cp, prompts, 1)
+
+    def publish(step):
+        if step == 2:
+            store.publish(params, 1)
+
+    before = _cp_counters(cp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    group, steps = _cp_wave(cp, prompts, GROUP, publish)
+    torch.cuda.synchronize()
+    rec = {"elapsed_s": time.perf_counter() - t0, "steps": steps,
+           **{k: v - before[k] for k, v in _cp_counters(cp).items()}}
+    return cp, warm, group, rec
+
+
+def _paged_sites():
+    from repro_torch.rollout import continuous
+    return {"paged_decode_attention": (continuous,
+                                       "paged_decode_attention_op"),
+            "paged_prefill_attention": (continuous,
+                                        "paged_prefill_attention_op")}
+
+
+def _paged_top_key_dropped(torch, q, pool_k, pool_v, tables, lengths):
+    """The plain paged decode (float32) with, in each row of more than one
+    key, the key that scores highest over the row's heads left out: a
+    kernel that skipped the key that matters most. The path's rows attend
+    sharply (weights x8), so a key or a page short at a row's end can move
+    nothing there."""
+    from repro_torch.models.attention import decode_attention
+    S, mb = tables.shape
+    bs, KV, hd = pool_k.shape[1:]
+    safe = tables.clamp_min(0).long()
+    k = pool_k[safe].reshape(S, mb * bs, KV, hd).float()
+    v = pool_v[safe].reshape(S, mb * bs, KV, hd).float()
+    keys = torch.arange(mb * bs, device=q.device)[None, :]
+    valid = keys < lengths[:, None]
+    score = torch.einsum("skgd,slkd->skgl",
+                         q.float().reshape(S, KV, -1, hd), k).amax((1, 2))
+    top = score.masked_fill(~valid, -torch.inf).argmax(-1)
+    drop = (keys == top[:, None]) & (lengths[:, None] > 1)
+    return decode_attention(q.float(), k, v, valid & ~drop)
+
+
+def _hold_paged_kernels(torch, seen):
+    """The two paged kernels held against their plain versions on the
+    inputs of their last call in a run (bf16 pools against float32 plain
+    versions), with a wrong reference that leaves out each row's
+    highest-scoring key (``_paged_top_key_dropped``). Returns the
+    records."""
+    from repro_torch.kernels.decode_attn.ops import paged_decode_attention_op
+    from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+    from repro_torch.kernels.prefill_attn.ops import (
+        paged_prefill_attention_op,
+    )
+    from repro_torch.kernels.prefill_attn.ref import (
+        paged_prefill_attention_ref,
+    )
+    recs = {}
+    with torch.no_grad():
+        if "paged_decode_attention" in seen:
+            (q, pk, pv, tables, lens), _ = seen["paged_decode_attention"]
+            bs = pk.shape[1]
+            tol = TOL["bfloat16" if pk.dtype == torch.bfloat16
+                      else "float32"]
+            out = paged_decode_attention_op(q, pk, pv, tables, lens)
+            q32, k32, v32 = q.float(), pk.float(), pv.float()
+            wrong = {"top_key_dropped": _paged_top_key_dropped(
+                torch, q, pk, pv, tables, lens)}
+            rec = {"name": "paged_decode_attention", "dtype": str(pk.dtype),
+                   "shape": {"S": q.shape[0], "H": q.shape[1],
+                             "KV": pk.shape[2], "hd": q.shape[2], "bs": bs,
+                             "mb": tables.shape[1],
+                             "n_blocks": pk.shape[0]},
+                   "lengths": [int(lens.min()), int(lens.max())]}
+            _hold(torch, rec, out, paged_decode_attention_ref(
+                q32, k32, v32, tables, lens), tol, wrong)
+            recs["paged_decode_attention"] = rec
+        if "paged_prefill_attention" in seen:
+            (q, pk, pv, tables, seg, pos), _ = seen["paged_prefill_attention"]
+            bs = pk.shape[1]
+            tol = TOL["bfloat16" if pk.dtype == torch.bfloat16
+                      else "float32"]
+            out = paged_prefill_attention_op(q, pk, pv, tables, seg, pos)
+            q32, k32, v32 = q.float(), pk.float(), pv.float()
+            dropped = _paged_top_key_dropped(
+                torch, q, pk, pv, tables[seg.clamp_min(0).long()], pos + 1)
+            wrong = {"top_key_dropped": torch.where(
+                (seg >= 0)[:, None, None], dropped, torch.zeros_like(
+                    dropped))}
+            rec = {"name": "paged_prefill_attention", "dtype": str(pk.dtype),
+                   "shape": {"C": q.shape[0], "H": q.shape[1],
+                             "KV": pk.shape[2], "hd": q.shape[2], "bs": bs,
+                             "mb": tables.shape[1],
+                             "n_blocks": pk.shape[0]},
+                   "positions": sorted({int(x) for x in pos.tolist()})[-8:]}
+            _hold(torch, rec, out, paged_prefill_attention_ref(
+                q32, k32, v32, tables, seg, pos), tol, wrong)
+            recs["paged_prefill_attention"] = rec
+    return recs
+
+
+def _check_stamps(reqs, label):
+    """Every request's version stamps are monotone, one per token."""
+    for r in reqs:
+        v = r.token_versions
+        if len(v) != len(r.generated) or v != sorted(v):
+            raise AssertionError(f"{label}: request {r.rid} stamps {v}")
+
+
+def phase_control_plane(torch, tmp):
+    """(a) Qwen2.5-1.5B (28 layers, bf16, layer weights x8) served through
+    the serving control plane: a warm wave of 4 distinct prompts, then the
+    group wave of 4 prompts x a group of 4 that hits the radix cache at
+    P - 1 tokens and forks each shared partial tail page, with a
+    pure-stamp publish mid-wave; tokens and logps held against
+    forward_logits; the group wave's time, prefill chunks and prefill
+    seconds with and without the cache; the paged kernels held on their
+    last call over shared pages; the pool drained once the cache is
+    cleared; in float32 at 4 layers, the cached wave equal to the
+    uncached. (b) `--engine async` through the launcher (the threaded
+    orchestrator over the control plane; block 8, 32 slots), from a
+    seeded initial state with the layer weights x8 and seeded Bernoulli
+    rewards, its four kernels held on the inputs of their last call."""
+    import numpy as np
+    from repro_torch.async_rl.orchestrator import AsyncOrchestrator
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import objective
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.obs.runlog import read_jsonl
+    from repro_torch.serving import ServingMetrics
+    from repro_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-1.5b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16)
+    _scale_blocks(torch, params, SCALE)
+    prompts = _cp_prompts(cfg)
+    P = {len(p) for p in prompts}
+    n_group = len(prompts) * GROUP
+
+    # warm-up of this plane's shapes outside the timed runs
+    _cp_serve(torch, cfg, params, prompts[:1], cache=True)
+    _reset_counts()
+    cp, warm, group, cached = _cp_serve(torch, cfg, params, prompts,
+                                        cache=True)
+    counts = rec_a_counts = _all_counts()
+    serve_path = ("paged_decode_attention", "paged_prefill_attention")
+    hits = [r.prefix_hit_tokens for r in group]
+    versions = sorted({v for r in group for v in r.token_versions})
+    _check_stamps(warm + group, "control plane")
+    checks = _reference_checks(torch, M, cfg, params, warm + group,
+                               ENGINE_GAP_TOL, ENGINE_LOGP_TOL)
+    rec = {"phase": "control_plane", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": "bfloat16",
+           "layer_weight_scale": SCALE, "engine": ENGINE_KW,
+           "prefill_budget": CP_PREFILL_BUDGET, "prompt_lens": sorted(P),
+           "group": GROUP, "max_new": CP_MAX_NEW,
+           "group_requests": n_group, "prefix_hits": hits,
+           "versions": versions, "interrupts": cp.metrics.interrupts,
+           "group_wave_cached": cached, "launches": counts,
+           "serving": cp.metrics.snapshot(), "reference_checks": checks}
+    if (any(h != len(r.prompt) - 1 for h, r in zip(hits, group))
+            or cached["cow_forks"] != n_group
+            or cached["prefill_chunk_tokens"] != n_group
+            or cached["prefill_tokens_computed"] != n_group
+            or versions != [0, 1] or cp.metrics.interrupts != 1
+            or any(counts[k] <= 0 for k in serve_path)):
+        raise AssertionError(f"control plane: {rec}")
+
+    # each prompt once more, its two paged kernels captured on their last
+    # call (one-token rows over pages the warm wave wrote and the cache
+    # shares, the tail page forked first)
+    with _capture_ops(torch, _paged_sites()) as seen:
+        _cp_wave(cp, prompts, 1)
+    rec["kernels"] = _hold_paged_kernels(torch, seen)
+    del seen
+    eng = cp.engine
+    eng.prefix_cache.clear()
+    rec["free_after_clear"] = eng.allocator.n_free
+    if eng.allocator.n_free != ENGINE_KW["n_blocks"] - 1 \
+            or len(eng.free_slots()) != ENGINE_KW["max_seqs"]:
+        raise AssertionError(f"control plane: pool not drained: {rec}")
+    del cp, eng
+
+    # the same traffic without the cache: every prompt token prefilled
+    cp, _, _, uncached = _cp_serve(torch, cfg, params, prompts, cache=False)
+    rec["group_wave_uncached"] = uncached
+    emit(rec)
+    if uncached["prefill_chunk_tokens"] != GROUP * sum(CP_PROMPT_LENS):
+        raise AssertionError(f"control plane, uncached: {uncached}")
+    del cp, params
+    torch.cuda.empty_cache()
+
+    # float32 at 4 layers: the cached wave gives the uncached one's greedy
+    # tokens, logps within 2e-4 (the reference's test)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=CP_F32_LAYERS)
+    params32 = M.init_params(cfg32,
+                             torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda", dtype=torch.float32)
+    _scale_blocks(torch, params32, SCALE)
+    runs = [_cp_serve(torch, cfg32, params32, prompts, cache=c)
+            for c in (True, False)]
+    worst, same = 0.0, True
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        same &= a.generated == b.generated
+        if a.generated == b.generated:
+            worst = max(worst, float(np.abs(np.subtract(
+                a.gen_logp, b.gen_logp)).max()))
+    f32 = {"phase": "control_plane_float32", "layers": CP_F32_LAYERS,
+           "same_tokens": same, "max_abs_logp_diff": worst,
+           "logp_tol": CP_F32_LOGP_TOL,
+           "prefix_hits": [r.prefix_hit_tokens for r in runs[0][2]],
+           "group_wave_cached": runs[0][3],
+           "group_wave_uncached": runs[1][3]}
+    emit(f32)
+    if not same or worst > CP_F32_LOGP_TOL:
+        raise AssertionError(f"control plane float32: {f32}")
+    del runs, params32
+    torch.cuda.empty_cache()
+
+    # (b) the launcher's --engine async, a3po, from a seeded initial state
+    # with the layer weights x8 and seeded Bernoulli rewards
+    kept = {}
+
+    class ScaledOrchestrator(AsyncOrchestrator):
+        def run(self, state, num_steps, **kw):
+            with torch.no_grad():
+                _scale_blocks(torch, state.params, SCALE)
+            kept["orch"] = self
+            kept["state"], recs = super().run(state, num_steps, **kw)
+            return kept["state"], recs
+
+    log = str(tmp / "train_async.jsonl")
+    plain = train.ArithmeticTask, train.AsyncOrchestrator
+    train.ArithmeticTask, train.AsyncOrchestrator = (_coin_task_class(),
+                                                     ScaledOrchestrator)
+    sites = dict(_paged_sites(),
+                 token_logprob_entropy=(trainer, "token_logprob_entropy"),
+                 a3po_loss=(objective, "a3po_objective_reduced"))
+    try:
+        with _capture_ops(torch, sites) as seen:
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
+                        "--staleness", "2", "--engine", "async",
+                        "--log-jsonl", log, "--quiet"])
+            elapsed = time.perf_counter() - t0
+            counts = _all_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        train.ArithmeticTask, train.AsyncOrchestrator = plain
+    recs = read_jsonl(log)
+    _check_records(np, recs, "engine async")
+    orch = kept["orch"]
+    eng = orch.control_plane.engine
+    busy = len(eng.free_slots()) != eng.max_seqs
+    eng.prefix_cache.clear()
+    keys = set(ServingMetrics(register=False).snapshot())
+    gate = orch.rl.max_staleness
+    rec = {"phase": "async_rl_control_plane", "algo": "a3po",
+           "rewards": "seeded Bernoulli(0.5)", "layer_weight_scale": SCALE,
+           "engine": {"max_seqs": eng.max_seqs,
+                      "block_size": eng.state.block_size,
+                      "n_blocks": eng.allocator.n_blocks + 1,
+                      "decode_horizon": eng.decode_horizon},
+           "steps": len(recs), "elapsed_s": elapsed,
+           "steps_per_s": len(recs) / elapsed,
+           "staleness": [r["staleness_mean"] for r in recs],
+           "max_staleness": gate,
+           "host_syncs": [r["host_syncs"] for r in recs],
+           "reward": [r["reward"] for r in recs],
+           "loss": [r["loss"] for r in recs],
+           "rollout_s": [r["rollout_time_s"] for r in recs],
+           "train_s": [r["train_time_s"] for r in recs],
+           "serving_last": recs[-1].get("serving") if recs else None,
+           "slots_busy_after": busy,
+           "free_after_clear": eng.allocator.n_free,
+           "peak_mem_gb": peak, "launches": counts}
+    emit(rec)
+    path = ("paged_decode_attention", "paged_prefill_attention",
+            "token_logprob_entropy", "token_logprob_entropy_bwd",
+            "a3po_loss", "a3po_loss_bwd")
+    if (len(recs) != 4
+            or any(set(r.get("serving") or {}) != keys for r in recs)
+            or not all(0 <= r["staleness_mean"] <= gate for r in recs)
+            or any(r["host_syncs"] != 1.0 for r in recs)
+            or any(counts[k] <= 0 for k in path) or busy
+            or eng.allocator.n_free != eng.allocator.n_blocks
+            or orch.worker.alive):
+        raise AssertionError(f"engine async: {rec}")
+    held = _hold_paged_kernels(torch, seen)
+    held.update(_hold_path_kernels(torch, seen))
+    emit({"phase": "async_rl_control_plane_checks", "kernels": held,
+          "phase_s": time.perf_counter() - t_phase})
+    del seen, kept, orch, eng
+    torch.cuda.empty_cache()
+    return {"control_plane": {k: rec_a_counts[k] for k in serve_path},
+            "engine_async": {k: counts[k] for k in path}}
 
 
 @contextlib.contextmanager
@@ -3091,6 +3506,8 @@ def main() -> int:
     launches.update(phase_rollout(torch))
     with tempfile.TemporaryDirectory() as tmp:
         phase_async_rl(torch, Path(tmp))
+        torch.cuda.empty_cache()
+        cp_launches = phase_control_plane(torch, Path(tmp))
     torch.cuda.empty_cache()
     with torch.no_grad():
         kernels.update(phase_ssd_kernels(torch))
@@ -3147,6 +3564,9 @@ def main() -> int:
                 "peak_mem_gb_above_inputs"]
         if "splits" in k:
             line[-1]["splits"] = k["splits"]
+        by_path = {p: n[name] for p, n in cp_launches.items() if name in n}
+        if by_path:
+            line[-1]["control_plane_launches"] = by_path
         for extra in ("launch_floor_ms", "parent_path_ms", "path_ms"):
             if extra in k:
                 line[-1][extra] = k[extra]

@@ -6,7 +6,10 @@ Two operating modes:
 * ``AsyncOrchestrator`` — real threads: a rollout worker continuously pulls
   the latest weights, generates groups, and pushes version-stamped batches;
   the trainer consumes fresh batches and publishes new weights. On one card
-  the two threads share the device (and its default stream).
+  the two threads share the device (and its default stream). With
+  ``use_control_plane=True`` the worker generates through the serving
+  control plane (``repro_torch.serving``): continuous batching with a radix
+  prefix cache, weight publishes absorbed mid-batch and stamped per token.
 
 * ``simulate_async`` — deterministic single-thread simulation with an
   explicit staleness schedule: the behaviour policy of step t is the
@@ -19,10 +22,8 @@ hands the published tree to the rollout thread. An in-place update would
 turn every behaviour policy into the current one while the staleness
 stamps still read ``d``.
 
-Not ported yet (each raises ``NotImplementedError``): the serving control
-plane (``use_control_plane=True``, ROADMAP queue 1 "serving/") and the
-fault-tolerance runtime (``resilience=``, ``resume=``, ROADMAP queue 1
-"resilience/").
+Not ported yet (raises ``NotImplementedError``): the fault-tolerance
+runtime (``resilience=``, ``resume=``, ROADMAP queue 1 "resilience/").
 """
 from __future__ import annotations
 
@@ -62,8 +63,6 @@ from repro_torch.training.trainer import (
 POP_DEADLINE_S = 30.0
 
 _NOT_PORTED = {
-    "use_control_plane": "the serving control plane is not ported yet "
-                         "(ROADMAP queue 1, 'serving/')",
     "resilience": "the fault-tolerance runtime is not ported yet (ROADMAP "
                   "queue 1, 'resilience/')",
 }
@@ -84,7 +83,8 @@ class StepRecord:
     train_time_s: float
     wall_time_s: float
     eval_reward: Optional[float] = None  # held-out eval (when scheduled)
-    # serving control-plane snapshot (not ported: always None here)
+    # serving control-plane snapshot (staleness distribution, prefix-cache
+    # hit rate, queue delay, page utilization, interrupt counts)
     serving: Optional[Dict[str, float]] = None
     # training-engine telemetry: response tokens updated this step and
     # device->host transfers the step performed (1; +1 for the explicit
@@ -110,14 +110,15 @@ def _rollout_once(engine: RolloutEngine, task: ArithmeticTask, params,
 
 
 def _record(step: int, m: Dict[str, float], rollout_t: float,
-            train_t: float, t_start: float) -> StepRecord:
+            train_t: float, t_start: float,
+            serving: Optional[Dict[str, float]] = None) -> StepRecord:
     return StepRecord(
         step=step, reward=m["reward_mean"], loss=m["loss"],
         entropy=m.get("entropy", 0.0), iw_max=m["iw_max"],
         iw_min=m["iw_min"], clipped_tokens=m["clipped_tokens"],
         staleness_mean=m["staleness_mean"], prox_time_s=m["prox_time_s"],
         rollout_time_s=rollout_t, train_time_s=train_t,
-        wall_time_s=time.perf_counter() - t_start,
+        wall_time_s=time.perf_counter() - t_start, serving=serving,
         train_tokens=m.get("tokens", 0.0),
         host_syncs=m.get("host_syncs", 0.0))
 
@@ -135,9 +136,9 @@ class AsyncOrchestrator:
                  algo="a3po", n_prompts: int = 16,
                  max_new_tokens: int = 8, queue_capacity: int = 4,
                  seed: int = 0, use_control_plane: bool = False,
+                 serve_kwargs: Optional[Dict] = None,
+                 decode_horizon: int = 8,
                  resilience=None):
-        if use_control_plane:
-            raise NotImplementedError(_NOT_PORTED["use_control_plane"])
         if resilience is not None:
             raise NotImplementedError(_NOT_PORTED["resilience"])
         self.cfg, self.rl, self.task = cfg, rl, task
@@ -150,7 +151,52 @@ class AsyncOrchestrator:
         self.seed = seed
         self._stop = threading.Event()
         self._rollout_times: List[float] = []
+        # serving control plane (interruptible continuous batching with a
+        # radix prefix cache) instead of the run-to-completion engine
+        self.use_control_plane = use_control_plane
+        # decode horizon for the continuous-batching engine: tokens per
+        # serving launch (host drains once per horizon). Weight publishes
+        # are absorbed at horizon boundaries; per-token version stamps stay
+        # truthful (first horizon token carries the version that produced
+        # its logits).
+        self.decode_horizon = decode_horizon
+        self._serve_kwargs = serve_kwargs or {}
+        self.control_plane = None
         self.worker = None  # the SupervisedWorker of the last run()
+
+    def _build_control_plane(self, store: WeightStore, device):
+        # imported here: serving imports async_rl's queue and weight store
+        from repro_torch.rollout.continuous import ContinuousBatchingEngine
+        from repro_torch.serving import (
+            AdmissionScheduler,
+            SchedulerConfig,
+            ServingControlPlane,
+        )
+        kw = dict(max_seqs=self.n_prompts * self.rl.group_size,
+                  block_size=8, n_blocks=512, max_blocks_per_seq=16,
+                  decode_horizon=self.decode_horizon)
+        kw.update(self._serve_kwargs)
+        srv = ContinuousBatchingEngine(self.cfg, rl=self.rl, device=device,
+                                       **kw)
+        return ServingControlPlane(
+            srv, store,
+            AdmissionScheduler(SchedulerConfig(d_max=self.rl.max_staleness)),
+            rollout_queue=self.queue)
+
+    def _rollout_once_cp(self, generator: torch.Generator):
+        """Group rollout through the serving control plane: GRPO members
+        share one prefill via the radix cache, and weight publishes landing
+        mid-batch are absorbed with per-token version stamps."""
+        batch = self.task.sample(self.n_prompts)
+        group = self.rl.group_size
+        prompts = np.repeat(batch.prompts, group, axis=0)
+        lengths = np.repeat(batch.prompt_lengths, group)
+        answers = [a for a in batch.answers for _ in range(group)]
+        rb = self.control_plane.generate_batch(
+            prompts, lengths, generator, max_new=self.max_new_tokens)
+        completions = self.engine.completions(rb)
+        rewards = self.task.rewards(completions, answers)
+        return rb, rewards
 
     def _rollout_worker(self, ctx, store: WeightStore, device) -> None:
         """Supervised worker body: loops until told to stop, heartbeats
@@ -159,15 +205,18 @@ class AsyncOrchestrator:
         while not ctx.should_stop():
             ctx.heartbeat()
             t0 = time.perf_counter()
-            params, version = store.latest()
-            with span("rollout", version=version) as sp:
-                rb, rewards = _rollout_once(
-                    self.engine, self.task, params, version,
-                    self.n_prompts, self.rl.group_size, generator)
-                sp.set(reward_mean=float(np.mean(rewards)))
-                # close the publish->rollout flow arrow: first rollout
-                # generated under the published version
-                flow_end("publish", version)
+            if self.control_plane is not None:
+                rb, rewards = self._rollout_once_cp(generator)
+            else:
+                params, version = store.latest()
+                with span("rollout", version=version) as sp:
+                    rb, rewards = _rollout_once(
+                        self.engine, self.task, params, version,
+                        self.n_prompts, self.rl.group_size, generator)
+                    sp.set(reward_mean=float(np.mean(rewards)))
+                    # close the publish->rollout flow arrow: first rollout
+                    # generated under the published version
+                    flow_end("publish", version)
             self._rollout_times.append(time.perf_counter() - t0)
             rb.rewards = rewards  # piggyback
             try:
@@ -186,6 +235,8 @@ class AsyncOrchestrator:
         device = state.version.device
         version = int(state.version)
         store = WeightStore(state.params, version)
+        if self.use_control_plane:
+            self.control_plane = self._build_control_plane(store, device)
         self.worker = SupervisedWorker(
             "rollout-worker", self._rollout_worker, args=(store, device),
             max_restarts=0, heartbeat_timeout_s=60.0, seed=0,
@@ -210,12 +261,14 @@ class AsyncOrchestrator:
                     with span("weight_publish", version=version):
                         store.publish(state.params, version)
                         # open the publish->resume flow arrow (closed by
-                        # the first rollout under `version`)
+                        # the first rollout/serving step under `version`)
                         flow_start("publish", version)
+                serving = (self.control_plane.metrics.snapshot()
+                           if self.control_plane is not None else None)
                 records.append(_record(
                     step, m, (np.mean(self._rollout_times[-3:])
                               if self._rollout_times else 0.0),
-                    train_t, t_start))
+                    train_t, t_start, serving))
                 if run_logger is not None:
                     run_logger.log_step(records[-1])
         finally:

@@ -1,9 +1,12 @@
 """Training launcher (``repro.launch.train``): the async A-3PO loop on one
 device.
 
-``--engine sim`` (the default and, so far, the only engine) runs
-``simulate_async``: the behaviour policy lags ``--staleness`` versions
-behind the trainer (0 for on-policy algorithms). The model runs on the card
+``--engine sim`` (the default) runs ``simulate_async``: the behaviour
+policy lags ``--staleness`` versions behind the trainer (0 for on-policy
+algorithms). ``--engine async`` runs the threaded ``AsyncOrchestrator``
+through the serving control plane (continuous batching with a radix prefix
+cache, publishes absorbed mid-batch, per-token version stamps), with the
+staleness gate at ``--staleness + 1``. The model runs on the card
 unless ``--device cpu`` asks for the CPU, which also switches the model to
 float32 and refuses full-scale architectures, as the reference does on its
 host.
@@ -19,13 +22,14 @@ dumps the metrics registry in prometheus text format at exit.
 
 Not ported yet; each exits non-zero naming the ROADMAP item that brings
 it: ``--mesh prod|prod-multipod`` (ROADMAP queue 1, "Distribution and
-launch"), ``--engine async`` (it drives the serving control plane: queue 1,
-"serving/"), ``--ckpt-dir``, ``--fault``, ``--guard`` and ``--resume``
-(queue 1, "resilience/").
+launch"), ``--ckpt-dir``, ``--fault``, ``--guard`` and ``--resume`` (queue
+1, "resilience/"), with either engine.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
       --steps 4 --staleness 2 --algo a3po [--log-jsonl run.jsonl]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
+      --steps 4 --engine async
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch toy-2m --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --algo list
@@ -39,7 +43,10 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.async_rl.orchestrator import simulate_async
+from repro_torch.async_rl.orchestrator import (
+    AsyncOrchestrator,
+    simulate_async,
+)
 from repro_torch.configs.base import RLConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core.algorithms import registry_table, resolve_algorithm
@@ -53,8 +60,6 @@ from repro_torch.training.checkpoints import save_checkpoint
 _NOT_PORTED = {
     "mesh": "--mesh prod / prod-multipod: sharded meshes are not ported yet "
             "(ROADMAP queue 1, 'Distribution and launch')",
-    "engine": "--engine async drives the serving control plane, which is "
-              "not ported yet (ROADMAP queue 1, 'serving/')",
     "resilience": "--ckpt-dir / --fault / --guard / --resume: the "
                   "fault-tolerance runtime is not ported yet (ROADMAP "
                   "queue 1, 'resilience/')",
@@ -96,7 +101,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--engine", default="sim", choices=["sim", "async"],
                    help="sim: deterministic single-thread simulation; "
-                        "async: not ported yet")
+                        "async: threaded orchestrator through the serving "
+                        "control plane")
     p.add_argument("--trace", default=None, metavar="FILE",
                    help="record spans and export a Chrome/Perfetto "
                         "trace.json here")
@@ -126,8 +132,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args.mesh != "local":
         raise SystemExit(_NOT_PORTED["mesh"])
-    if args.engine != "sim":
-        raise SystemExit(_NOT_PORTED["engine"])
     if args.ckpt_dir or args.fault or args.guard != "off" or args.resume:
         raise SystemExit(_NOT_PORTED["resilience"])
     if args.method:
@@ -160,10 +164,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                   max_staleness=args.staleness + 1)
     task = ArithmeticTask(max_operand=9, n_terms=2, prompt_len=8)
     try:
-        state, recs = simulate_async(
-            cfg, rl, task, algo, args.steps, n_prompts=8, max_new_tokens=6,
-            staleness=0 if algo.on_policy else args.staleness,
-            num_microbatches=args.microbatch, run_logger=log, device=device)
+        if args.engine == "async":
+            orch = AsyncOrchestrator(cfg, rl, task, algo, n_prompts=8,
+                                     max_new_tokens=6,
+                                     use_control_plane=True)
+            state = orch.trainer.init_state(
+                torch.Generator(device=device).manual_seed(7), device=device)
+            state, recs = orch.run(state, args.steps, run_logger=log)
+        else:
+            state, recs = simulate_async(
+                cfg, rl, task, algo, args.steps, n_prompts=8,
+                max_new_tokens=6,
+                staleness=0 if algo.on_policy else args.staleness,
+                num_microbatches=args.microbatch, run_logger=log,
+                device=device)
         for r in recs[:: max(1, len(recs) // 8)]:
             log.print(
                 f"  step {r.step:3d} reward {r.reward:.3f} loss "

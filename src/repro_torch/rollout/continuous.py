@@ -58,10 +58,8 @@ from repro_torch.rollout.sampler import (
 
 @dataclasses.dataclass
 class Request:
-    """A generation request and what the engine records for it (the
-    reference's control-plane fields: priority, submit version, prefix
-    hits, lifecycle, SLO and preemption, are not ported: nothing here reads
-    them)."""
+    """A generation request and what the engine and the serving control
+    plane (``repro_torch.serving``) record for it."""
     rid: int
     prompt: np.ndarray           # [P] token ids (unpadded)
     max_new: int
@@ -69,17 +67,50 @@ class Request:
     done: bool = False
     # --- staleness-aware control plane bookkeeping -----------------------
     # behavior logprob of each generated token (under the params that
-    # produced its logits) and the weight version of those params
+    # produced its logits) and the weight version of those params: the
+    # per-token [B, T] stamps a3po.staleness consumes.
     gen_logp: List[float] = dataclasses.field(default_factory=list)
     token_versions: List[int] = dataclasses.field(default_factory=list)
+    priority: int = 0            # scheduler class (lower = more urgent)
+    submit_version: int = 0      # weight version when the request arrived
+    prefix_hit_tokens: int = 0   # prompt tokens served from the radix cache
+    preempt_count: int = 0
     # chunked-prefill cursor: prompt tokens whose K/V is resident in the
     # paged pool (radix hits count). The slot only enters the decode lane
     # once prefill_done.
     prefill_pos: int = 0
+    # lifecycle stamps (control-plane clock; -1 = unset)
+    t_submit: float = -1.0
+    t_admit: float = -1.0
+    t_first_token: float = -1.0
+    t_done: float = -1.0
+    # --- multi-tenant / SLO bookkeeping ----------------------------------
+    tenant: str = ""
+    slo_class: str = ""          # SLO class name (stamped by SLO scheduler)
+    deadline_s: float = float("inf")  # absolute TTFT deadline (clock time)
+    drop_reason: str = ""        # staleness_budget | max_preempts | slo_shed
 
     @property
     def prefill_done(self) -> bool:
         return self.prefill_pos >= len(self.prompt)
+
+    def min_version(self) -> int:
+        return min(self.token_versions) if self.token_versions \
+            else self.submit_version
+
+    def reset_generation(self) -> None:
+        """Discard sampled state for a fresh restart (preempt/resubmit).
+
+        The first-token stamp is cleared too: a restarted request lost
+        its partial generation, so the first token the caller actually
+        receives is the one after the restart (TTFT re-observes).
+        """
+        self.generated = []
+        self.gen_logp = []
+        self.token_versions = []
+        self.done = False
+        self.prefill_pos = 0
+        self.t_first_token = -1.0
 
 
 # attend(li, q [R,H,hd], k [R,KV,hd], v [R,KV,hd]) -> o [R,H,hd]
@@ -346,9 +377,11 @@ class ContinuousBatchingEngine:
     """Paged continuous-batching server for dense, SSM and hybrid stacks.
 
     ``device`` defaults to CUDA (and raises where there is none); pass
-    ``device="cpu"`` for the plain PyTorch path. ``prefix_cache`` is the
-    duck-typed radix cache hook of the reference (``lookup``/``match``/
-    ``insert``/``evict``/``evictable_count``); none is ported yet.
+    ``device="cpu"`` for the plain PyTorch path. ``prefix_cache`` is a
+    duck-typed ``serving.prefix_cache.RadixPrefixCache`` (``lookup``/
+    ``match``/``insert``/``evict``/``evictable_count``; untyped to avoid a
+    rollout -> serving import cycle): prompts that hit it start their
+    prefill at the matched cursor on shared, copy-on-write pages.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_seqs: int = 8,
@@ -416,15 +449,23 @@ class ContinuousBatchingEngine:
         self.decode_launches = 0
         self.tokens_emitted = 0
         self.last_emitted = 0
-        # prefill-lane telemetry: chunk launches and prompt tokens
+        # prefill-lane telemetry: chunk launches, prompt tokens computed
+        # through the chunk path, and distinct chunk launch shapes. Nothing
+        # is compiled here (the reference counts its jit compiles, one per
+        # padded bucket); the counter keeps the serving metrics' schema and
+        # counts the distinct (rows) / (rows, width) shapes launched.
         self.prefill_launches = 0
         self.prefill_chunk_tokens = 0
+        self.prefill_compiles = 0
+        self._prefill_shapes: set = set()
 
     # ------------------------------------------------------------- requests
-    def submit(self, prompt_ids, max_new: int = 16) -> int:
+    def submit(self, prompt_ids, max_new: int = 16, *, priority: int = 0,
+               submit_version: int = 0) -> int:
         self._rid += 1
         self._pending.append(Request(self._rid, np.asarray(prompt_ids),
-                                     max_new))
+                                     max_new, priority=priority,
+                                     submit_version=submit_version))
         return self._rid
 
     def _cache_plan(self, prompt) -> tuple:
@@ -451,6 +492,40 @@ class ContinuousBatchingEngine:
         reclaimable blocks exist."""
         if self.prefix_cache is not None and self.allocator.n_free < n:
             self.prefix_cache.evict(n - self.allocator.n_free)
+
+    def _decode_budget(self) -> Dict[int, int]:
+        """Tokens the next decode launch writes for each decode-ready slot:
+        its horizon budget (one with ``decode_horizon`` 1, ``step``'s)."""
+        H = max(self.decode_horizon, 1)
+        return {s: min(H, self.slots[s].max_new - len(self.slots[s].generated))
+                for s in self.decode_ready_slots()}
+
+    def _write_need(self, slot_tokens: Dict[int, int]) -> int:
+        """Fresh blocks the next ``slot_tokens[slot]`` writes of each slot
+        take: the unmapped ones in its write range, plus a copy-on-write
+        fork where its first write block is radix-shared."""
+        bs = self.state.block_size
+        mb = self.state.max_blocks
+        need = 0
+        for slot, n in slot_tokens.items():
+            if n <= 0:
+                continue
+            first, last = pc.write_range(int(self._lens[slot]), n, bs, mb)
+            need += int(np.sum(self._tables[slot, first: last + 1] < 0))
+            blk = int(self._tables[slot, first])
+            if blk >= 0 and self.allocator.refs(blk) > 1:
+                need += 1
+        return need
+
+    def decode_block_shortfall(self) -> int:
+        """Blocks the next decode launch would need beyond what the pool
+        can supply (free + cache-evictable), by ``_prepare_decode``'s own
+        need count, so the control plane can shed work before the
+        allocator runs dry mid-fork. 0 when safe."""
+        supply = self.allocator.n_free
+        if self.prefix_cache is not None:
+            supply += self.prefix_cache.evictable_count()
+        return max(self._write_need(self._decode_budget()) - supply, 0)
 
     def free_slots(self) -> List[int]:
         return [s for s, r in self.slots.items() if r is None]
@@ -503,6 +578,7 @@ class ContinuousBatchingEngine:
         else:
             pc.map_sequence(self.state, self.allocator, slot,
                             P + req.max_new)
+        req.prefix_hit_tokens = n_matched
         req.prefill_pos = n_matched
         if self.ssm_pool is not None:
             # fresh sequence: map the slot and zero its recurrent state
@@ -598,6 +674,7 @@ class ContinuousBatchingEngine:
             self.state.seq_lens += torch.from_numpy(counts).to(self.device)
         self.prefill_launches += 1
         self.prefill_chunk_tokens += n_rows
+        self._note_shape(("chunk", n_rows))
         for slot, start, n in work:
             r = self.slots[slot]
             r.prefill_pos = start + n
@@ -609,6 +686,11 @@ class ContinuousBatchingEngine:
                     self.prefix_cache.insert(
                         r.prompt,
                         [int(b) for b in self._tables[slot][:n_blocks]])
+
+    def _note_shape(self, shape: tuple) -> None:
+        if shape not in self._prefill_shapes:
+            self._prefill_shapes.add(shape)
+            self.prefill_compiles += 1
 
     def _multiarch_prefill_launch(self, params, work: List[tuple],
                                   version: int) -> None:
@@ -652,6 +734,7 @@ class ContinuousBatchingEngine:
             self.state.seq_lens += torch.from_numpy(inc).to(self.device)
         self.prefill_launches += 1
         self.prefill_chunk_tokens += int(counts.sum())
+        self._note_shape(("machunk", R, W))
         for slot, start, n in work:
             r = self.slots[slot]
             r.prefill_pos = start + n
@@ -677,16 +760,7 @@ class ContinuousBatchingEngine:
         """
         bs = self.state.block_size
         mb = self.state.max_blocks
-        need = 0
-        for slot, n in slot_tokens.items():
-            if n <= 0:
-                continue
-            first, last = pc.write_range(int(self._lens[slot]), n, bs, mb)
-            need += int(np.sum(self._tables[slot, first: last + 1] < 0))
-            blk = int(self._tables[slot, first])
-            if blk >= 0 and self.allocator.refs(blk) > 1:
-                need += 1  # CoW fork below
-        self._reclaim_headroom(need)
+        self._reclaim_headroom(self._write_need(slot_tokens))
         dirty = False
         for slot, n in slot_tokens.items():
             if n <= 0:
@@ -803,10 +877,10 @@ class ContinuousBatchingEngine:
         active = {s: self.slots[s] for s in self.decode_ready_slots()}
         if not active:
             return []
+        plan = self._decode_budget()
         budget = np.zeros((self.max_seqs,), np.int32)
-        for s, r in active.items():
-            budget[s] = min(H, r.max_new - len(r.generated))
-        self._prepare_decode({s: int(budget[s]) for s in active})
+        budget[list(plan)] = list(plan.values())
+        self._prepare_decode(plan)
         with annotate("decode_horizon"):
             packed, lens, logits = _paged_decode_horizon(
                 params, _layers(params, self.cfg), self.cfg, self.state,

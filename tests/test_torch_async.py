@@ -392,8 +392,6 @@ def test_async_threaded_orchestrator(toy):
 def test_unported_options_refuse(toy):
     _, _, cfg, _ = toy
     _, trl = _rl()
-    with pytest.raises(NotImplementedError, match="serving/"):
-        orch.AsyncOrchestrator(cfg, trl, _task(), use_control_plane=True)
     with pytest.raises(NotImplementedError, match="resilience/"):
         orch.AsyncOrchestrator(cfg, trl, _task(), resilience=object())
     for kw in ({"resilience": object()}, {"resume": object()}):
@@ -441,7 +439,7 @@ def test_launcher_algo_list(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--engine", "async"], "serving/"),
+    (["--engine", "async", "--fault", "rollout_crash@1"], "resilience/"),
     (["--mesh", "prod"], "Distribution and launch"),
     (["--ckpt-dir", "ckpts"], "resilience/"),
     (["--fault", "rollout_crash@1"], "resilience/"),

@@ -65,6 +65,37 @@ def qwen_reduced():
     return jcfg, jparams, _f32(get_config("qwen2.5-1.5b-reduced")), tparams
 
 
+# the four dense assigned architectures, -reduced (2 layers, d 256, vocab
+# 512): command-r-plus runs the parallel attention + FFN block, granite MQA
+# with qkv bias, codeqwen MHA with qkv bias, deepseek-coder GQA without
+ASSIGNED_DENSE = ("codeqwen1.5-7b", "command-r-plus-104b",
+                  "deepseek-coder-33b", "granite-34b")
+
+
+@pytest.fixture(scope="module")
+def assigned_reduced():
+    """name -> (jax cfg, jax params, torch cfg, torch ParamTree) of a
+    JAX-initialised -reduced assigned architecture, layer weights x8."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            jcfg = _f32(jax_get_config(name + "-reduced"))
+            jparams = _scaled_blocks(jmodel.init_params(
+                jcfg, jax.random.PRNGKey(3)))
+            made[name] = (jcfg, jparams,
+                          _f32(get_config(name + "-reduced")),
+                          from_jax(jax.device_get(jparams), device="cpu"))
+        return made[name]
+    return get
+
+
+def _weights(which, request):
+    if which in ASSIGNED_DENSE:
+        return request.getfixturevalue("assigned_reduced")(which)
+    return request.getfixturevalue(which)
+
+
 def _np(x):
     return np.asarray(x)
 
@@ -74,7 +105,8 @@ def test_configs_are_copies():
     for name in ("qwen2.5-1.5b", "qwen3-8b", "toy-2m", "toy-20m",
                  "qwen2.5-1.5b-reduced", "toy-2m-reduced", "mamba2-370m",
                  "zamba2-1.2b", "mamba2-370m-reduced",
-                 "zamba2-1.2b-reduced"):
+                 "zamba2-1.2b-reduced") + ASSIGNED_DENSE + tuple(
+                     n + "-reduced" for n in ASSIGNED_DENSE):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_get_config(name))
     with pytest.raises(KeyError):
@@ -148,12 +180,14 @@ def test_attention_references_match_jax():
     np.testing.assert_allclose(o_t.numpy(), _np(o_j), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("which", ["toy_ckpt", "qwen_reduced"])
+@pytest.mark.parametrize("which", ["toy_ckpt", "qwen_reduced",
+                                   *ASSIGNED_DENSE])
 def test_forward_logits_matches_jax(which, request):
     """Whole-sequence forward_logits of the port == the JAX model's on the
     same weights (toy-2m checkpoint; qwen2.5-1.5b-reduced: qkv bias, tied
-    embeddings, G=2), with a right-padded batch row."""
-    jcfg, jparams, tcfg, tparams = request.getfixturevalue(which)
+    embeddings, G=2; the four dense assigned architectures, -reduced),
+    with a right-padded batch row."""
+    jcfg, jparams, tcfg, tparams = _weights(which, request)
     rng = np.random.default_rng(2)
     toks = rng.integers(4, tcfg.vocab_size, size=(2, 21)).astype(np.int32)
     pad = np.ones((2, 21), bool)
@@ -169,7 +203,9 @@ def test_forward_logits_matches_jax(which, request):
 
 @pytest.mark.parametrize("which,window", [("toy_ckpt", None),
                                           ("qwen_reduced", None),
-                                          ("toy_ckpt", 7)])
+                                          ("toy_ckpt", 7)] + [
+                                              (n, None)
+                                              for n in ASSIGNED_DENSE])
 def test_prefill_and_decode_match_jax(which, window, request):
     """Dense prefill (flash attention op, no pad mask) and four decode
     steps (dense decode op, in-place cache writes) == the JAX model's
@@ -177,7 +213,7 @@ def test_prefill_and_decode_match_jax(which, window, request):
     prompts: hidden states of valid rows, cache entries at positions below
     each row's length, and every decode step's logits. With a window the
     prompts fill the rows and the decode wraps the ring."""
-    jcfg, jparams, tcfg, tparams = request.getfixturevalue(which)
+    jcfg, jparams, tcfg, tparams = _weights(which, request)
     rng = np.random.default_rng(5)
     B, P, n_dec = 3, 6 if window else 11, 4
     toks = rng.integers(4, tcfg.vocab_size, size=(B, P)).astype(np.int32)

@@ -79,6 +79,28 @@ def qwen_reduced():
             from_jax(jax.device_get(jparams), device="cpu"))
 
 
+# the four dense assigned architectures, -reduced (JAX init, layer weights
+# x8): command-r-plus's parallel block, granite's MQA, codeqwen's MHA
+ASSIGNED_DENSE = ("codeqwen1.5-7b", "command-r-plus-104b",
+                  "deepseek-coder-33b", "granite-34b")
+
+
+@pytest.fixture(scope="module")
+def assigned_reduced():
+    made = {}
+
+    def get(name):
+        if name not in made:
+            jcfg = _f32(jax_get_config(name + "-reduced"))
+            jparams = _scaled_blocks(jmodel.init_params(
+                jcfg, jax.random.PRNGKey(3)))
+            made[name] = (jcfg, jparams,
+                          _f32(get_config(name + "-reduced")),
+                          from_jax(jax.device_get(jparams), device="cpu"))
+        return made[name]
+    return get
+
+
 def _prompts(vocab, seed=0):
     """Prompts of PROMPT_LENS tokens. For the toy vocabulary: the tails of
     a stream of arithmetic problems, each ending at an '=' so the trained
@@ -97,10 +119,13 @@ def _prompts(vocab, seed=0):
     return out
 
 
-@pytest.mark.parametrize("horizon", [1, 4])
-@pytest.mark.parametrize("which", ["toy_ckpt", "qwen_reduced"])
+@pytest.mark.parametrize("which,horizon", [
+    (w, h) for w in ("toy_ckpt", "qwen_reduced") for h in (1, 4)] + [
+    (w, 4) for w in ASSIGNED_DENSE])
 def test_engine_greedy_matches_jax(which, horizon, request):
-    jcfg, jparams, tcfg, tparams = request.getfixturevalue(which)
+    jcfg, jparams, tcfg, tparams = (
+        request.getfixturevalue("assigned_reduced")(which)
+        if which in ASSIGNED_DENSE else request.getfixturevalue(which))
     prompts = _prompts(tcfg.vocab_size)
     kw = dict(ENGINE_KW, greedy=True, decode_horizon=horizon)
     je = JaxEngine(jcfg, **kw)
