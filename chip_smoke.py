@@ -179,13 +179,43 @@ Phases, each printing one JSON line:
              training kernels launched, slots free and the pool drained,
              and each of the four held on the inputs of its last call with
              the wrong references of phases 3 and 5.
-14. the kernels line (all ten kernels, each with the shape its ms and
+14. resilience — (a) the launcher at Qwen2.5-1.5B, full width, depth
+             cut to 4 layers (a checkpoint holds params, Adam m and v and
+             two history trees: ~8.4 GB at 4 layers, ~31 GB at 28), a3po
+             at staleness 1, layer weights x8, Bernoulli rewards from the
+             task's RNG: run A --steps 4 --ckpt-every 2, run B with
+             --fault train_crash@3 (raises InjectedFault), run C
+             --resume auto on B's directory (resumes at step 2): C's
+             params, Adam m, v, t and version equal A's bit for bit, the
+             step-2 and step-3 records too; C's resume again with the
+             rollout generator's state left behind must differ; each
+             save's bytes and seconds, each restore's seconds and the
+             free disk. (b)
+             full depth, --fault nan_grad@1 --guard skip: the one
+             poisoned minibatch update skipped, params and Adam state bit
+             for bit as before it, every param finite. (c) full depth,
+             --engine async under rollout_crash, publish_fail,
+             kv_exhaust (the whole free pool, 3 serving steps) and
+             nan_logits: all steps, a worker restart, every fault fired,
+             no non-finite behaviour logp trained on, the hold released,
+             the run log valid under the port's obs.validate; both paged
+             kernels held and timed on their last call.
+15. loadgen — `python -m repro_torch.loadgen --arch qwen2.5-1.5b --quick`
+             (float32, full depth) twice: byte-identical lifecycle JSONL,
+             valid under validate_loadgen_jsonl; the paged kernels held
+             and timed on their last call; a replay with --fault
+             kv_exhaust; fit_cost_model on the card, its coefficients
+             beside the card's name and power limit.
+16. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
              loss's with the launch floor and the parent's and the new
              op's path times; the control plane's kernels with their
-             launches on its two paths), then the contract line (last):
+             launches on its two paths; every kernel's launches on each
+             path of phases 14 and 15, each path driven with the counts
+             at 0; the paged kernels' times at phase 14 (c)'s and 15's
+             shapes), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -2222,15 +2252,15 @@ def phase_rollout(torch):
 def _coin_task_class():
     """ArithmeticTask whose rewards are seeded Bernoulli(0.5) draws: a
     random model scores 0 on the verifier, which makes every advantage 0
-    and the update empty."""
+    and the update empty. The coins come from the task's own RNG, the one
+    a checkpoint captures (``task_rng_state``), so a resumed run draws
+    what the uninterrupted one drew."""
     import numpy as np
     from repro_torch.data.tasks import ArithmeticTask
 
     class CoinTask(ArithmeticTask):
         def rewards(self, completions, answers):
-            if not hasattr(self, "coin"):
-                self.coin = np.random.default_rng(7)
-            return self.coin.binomial(1, 0.5, len(answers)).astype(
+            return self.rng.binomial(1, 0.5, len(answers)).astype(
                 np.float32)
     return CoinTask
 
@@ -2487,47 +2517,30 @@ def phase_async_rl(torch, tmp):
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.obs.runlog import read_jsonl
-    from repro_torch.training import Trainer, TrainState, adam_init
+    from repro_torch.training import TrainState, adam_init
     from repro_torch.training.optimizer import flatten
 
     launches = {}
     staleness = 2
     cfg = get_config("qwen2.5-1.5b")
-    plain = train.ArithmeticTask, train.simulate_async
     for algo in ("a3po", "recompute"):
         path = str(tmp / f"train_{algo}.jsonl")
         result = {}
-
-        def run_and_keep(cfg, rl, task, algo, num_steps, **kw):
-            # the launcher's initial state as simulate_async makes it
-            # (seed + 7), with the layer weights x8: at init stds the model
-            # puts probability 1 on one token, so every behaviour logp is 0
-            # and the gradients all but vanish
-            dev = kw["device"]
-            state = Trainer(cfg, rl, algo).init_state(
-                torch.Generator(device=dev).manual_seed(7), device=dev)
-            with torch.no_grad():
-                _scale_blocks(torch, state.params, SCALE)
-            result["state"], recs = simulate_async(
-                cfg, rl, task, algo, num_steps, init_state=state, **kw)
-            return result["state"], recs
-        # the task's rewards become seeded Bernoulli draws, and the final
-        # state is kept for the checks
-        train.ArithmeticTask, train.simulate_async = (_coin_task_class(),
-                                                      run_and_keep)
-        try:
-            with _capture_path(torch) as seen:
-                _reset_counts()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
-                            "--staleness", str(staleness), "--algo", algo,
-                            "--log-jsonl", path, "--quiet"])
-                elapsed = time.perf_counter() - t0
-                counts = _all_counts()
-                peak = torch.cuda.max_memory_allocated() / 1e9
-        finally:
-            train.ArithmeticTask, train.simulate_async = plain
+        # at init stds the model puts probability 1 on one token, so every
+        # behaviour logp is 0 and the gradients all but vanish: the layer
+        # weights go x8, the rewards become seeded Bernoulli draws, and the
+        # final state is kept for the checks
+        with _scaled_launcher(torch, train, cfg, result), \
+                _capture_path(torch) as seen:
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
+                        "--staleness", str(staleness), "--algo", algo,
+                        "--log-jsonl", path, "--quiet"])
+            elapsed = time.perf_counter() - t0
+            counts = _all_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
         recs = read_jsonl(path)
         _check_records(np, recs, algo)
         syncs = 2.0 if algo == "recompute" else 1.0
@@ -2845,7 +2858,6 @@ def phase_control_plane(torch, tmp):
     seeded initial state with the layer weights x8 and seeded Bernoulli
     rewards, its four kernels held on the inputs of their last call."""
     import numpy as np
-    from repro_torch.async_rl.orchestrator import AsyncOrchestrator
     from repro_torch.configs.registry import get_config
     from repro_torch.core import objective
     from repro_torch.launch import train
@@ -2947,35 +2959,21 @@ def phase_control_plane(torch, tmp):
     # (b) the launcher's --engine async, a3po, from a seeded initial state
     # with the layer weights x8 and seeded Bernoulli rewards
     kept = {}
-
-    class ScaledOrchestrator(AsyncOrchestrator):
-        def run(self, state, num_steps, **kw):
-            with torch.no_grad():
-                _scale_blocks(torch, state.params, SCALE)
-            kept["orch"] = self
-            kept["state"], recs = super().run(state, num_steps, **kw)
-            return kept["state"], recs
-
     log = str(tmp / "train_async.jsonl")
-    plain = train.ArithmeticTask, train.AsyncOrchestrator
-    train.ArithmeticTask, train.AsyncOrchestrator = (_coin_task_class(),
-                                                     ScaledOrchestrator)
     sites = dict(_paged_sites(),
                  token_logprob_entropy=(trainer, "token_logprob_entropy"),
                  a3po_loss=(objective, "a3po_objective_reduced"))
-    try:
-        with _capture_ops(torch, sites) as seen:
-            _reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
-                        "--staleness", "2", "--engine", "async",
-                        "--log-jsonl", log, "--quiet"])
-            elapsed = time.perf_counter() - t0
-            counts = _all_counts()
-            peak = torch.cuda.max_memory_allocated() / 1e9
-    finally:
-        train.ArithmeticTask, train.AsyncOrchestrator = plain
+    with _scaled_orchestrator(torch, train, kept), \
+            _capture_ops(torch, sites) as seen:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train.main(["--arch", "qwen2.5-1.5b", "--steps", "4",
+                    "--staleness", "2", "--engine", "async",
+                    "--log-jsonl", log, "--quiet"])
+        elapsed = time.perf_counter() - t0
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
     recs = read_jsonl(log)
     _check_records(np, recs, "engine async")
     orch = kept["orch"]
@@ -3023,6 +3021,594 @@ def phase_control_plane(torch, tmp):
     torch.cuda.empty_cache()
     return {"control_plane": {k: rec_a_counts[k] for k in serve_path},
             "engine_async": {k: counts[k] for k in path}}
+
+
+# ------------------------------------------------------------- resilience
+# (a) crash and bit-exact resume at Qwen2.5-1.5B's full width, depth cut to
+# 4 layers: a checkpoint holds the params (float32 on disk), Adam m and v
+# and the staleness history (two trees at staleness 1), ~8.4 GB a save at
+# 4 layers (0.42 B params, the 233 M-parameter embedding included) and
+# ~31 GB at 28. Checkpoint every 2 steps of 4; the crash at step 3.
+RES_LAYERS = 4
+RES_STEPS = 4
+RES_CKPT_EVERY = 2
+RES_CRASH_AT = 3
+# (c) the four serving-side and loop faults of `--engine async`; the
+# kv_exhaust hold takes the whole free pool (it grabs what is free, at
+# most its magnitude) for 3 serving steps
+ASYNC_FAULTS = ("rollout_crash@1", "publish_fail@1", "kv_exhaust@2x3:512",
+                "nan_logits@3")
+# (d) the load harness CLI (the reference's defaults: 4 slots, block 8,
+# chunks of 16, horizon 4) and the fault its replay takes
+LOADGEN_ARGS = ("--arch", "qwen2.5-1.5b", "--quick", "--seed", "0",
+                "--policy", "slo", "--quiet")
+LOADGEN_FAULT = "kv_exhaust@3x4:4096"
+
+
+def _launch(train, argv):
+    train.main(["--arch", "qwen2.5-1.5b", "--quiet"] + list(argv))
+
+
+def _state_diff(torch, a, b):
+    """What differs between two TrainStates, bit for bit: the leaves of the
+    params and of Adam's m and v by path, and t and the version."""
+    from repro_torch.training.optimizer import flatten
+    diff = []
+    for label, x, y in (("params", a.params, b.params),
+                        ("m", a.opt["m"], b.opt["m"]),
+                        ("v", a.opt["v"], b.opt["v"])):
+        fx, fy = flatten(x), flatten(y)
+        diff += [f"{label}/{k}" for k in fx
+                 if not torch.equal(fx[k].detach(), fy[k].detach())]
+    if int(a.opt["t"]) != int(b.opt["t"]):
+        diff.append("t")
+    if int(a.version) != int(b.version):
+        diff.append("version")
+    return diff
+
+
+@contextlib.contextmanager
+def _timed_checkpoints(torch):
+    """Time every CheckpointManager save (from a synchronised device to
+    the committed pair, its npz size beside it) and restore (to the state
+    on the device)."""
+    from repro_torch.resilience.checkpoint import CheckpointManager
+    saves, restores = [], []
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(self, step, state, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(self, step, state, **kw)
+        saves.append({"step": step, "s": time.perf_counter() - t0,
+                      "bytes": os.path.getsize(path + ".npz")})
+        return path
+
+    def timed_restore(self, base_path, device="cuda"):
+        t0 = time.perf_counter()
+        info = restore(self, base_path, device)
+        torch.cuda.synchronize()
+        restores.append({"step": info.step, "s": time.perf_counter() - t0})
+        return info
+
+    CheckpointManager.save, CheckpointManager.restore = (timed_save,
+                                                         timed_restore)
+    try:
+        yield saves, restores
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+
+
+def _copy_resume(torch, info):
+    """A ResumeInfo whose trees are copies on the same device."""
+    from repro_torch.models.params import ParamTree
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import flatten, unflatten
+
+    def copy(tree, params=False):
+        flat = unflatten({k: v.detach().clone()
+                          for k, v in flatten(tree).items()})
+        return ParamTree(flat, requires_grad=True) if params else flat
+    st = info.state
+    return dataclasses.replace(
+        info, state=TrainState(
+            copy(st.params, True),
+            {"m": copy(st.opt["m"]), "v": copy(st.opt["v"]),
+             "t": st.opt["t"].clone()}, st.version.clone()),
+        history=[(copy(p, True), v) for p, v in info.history])
+
+
+@contextlib.contextmanager
+def _scaled_launcher(torch, train, cfg, kept):
+    """The launcher's sim engine with the task's rewards as seeded
+    Bernoulli draws from the task's RNG, its fresh initial state (seed 7,
+    as simulate_async makes it) with the layer weights x8, ``cfg`` for
+    the architecture, and what simulate_async was given and returned kept
+    in ``kept`` ("state", "resilience"; with ``kept["call"]`` set, a
+    resumed run's arguments and a copy of its ResumeInfo as they came in
+    replace it)."""
+    from repro_torch.training import Trainer
+    plain = train.ArithmeticTask, train.simulate_async, train.get_config
+
+    def sim(cfg_, rl, task, algo, num_steps, **kw):
+        resume = kw.get("resume")
+        if resume is None:
+            dev = kw["device"]
+            state = Trainer(cfg_, rl, algo).init_state(
+                torch.Generator(device=dev).manual_seed(7), device=dev)
+            with torch.no_grad():
+                _scale_blocks(torch, state.params, SCALE)
+            kw["init_state"] = state
+        elif "call" in kept:
+            kept["call"] = (cfg_, rl, type(task), algo, num_steps,
+                            dict(kw, resume=_copy_resume(torch, resume)))
+        kept["resilience"] = kw.get("resilience")
+        kept["state"], recs = plain[1](cfg_, rl, task, algo, num_steps, **kw)
+        return kept["state"], recs
+
+    train.ArithmeticTask, train.simulate_async, train.get_config = (
+        _coin_task_class(), sim, lambda name: cfg)
+    try:
+        yield
+    finally:
+        train.ArithmeticTask, train.simulate_async, train.get_config = plain
+
+
+@contextlib.contextmanager
+def _scaled_orchestrator(torch, train, kept):
+    """The launcher's --engine async with the task's rewards as seeded
+    Bernoulli draws and its initial state's layer weights x8; the
+    orchestrator and its final state kept in ``kept``."""
+    from repro_torch.async_rl.orchestrator import AsyncOrchestrator
+
+    class ScaledOrchestrator(AsyncOrchestrator):
+        def run(self, state, num_steps, **kw):
+            with torch.no_grad():
+                _scale_blocks(torch, state.params, SCALE)
+            kept["orch"] = self
+            kept["state"], recs = super().run(state, num_steps, **kw)
+            return kept["state"], recs
+
+    plain = train.ArithmeticTask, train.AsyncOrchestrator
+    train.ArithmeticTask, train.AsyncOrchestrator = (_coin_task_class(),
+                                                     ScaledOrchestrator)
+    try:
+        yield
+    finally:
+        train.ArithmeticTask, train.AsyncOrchestrator = plain
+
+
+def _path_counts(kinds):
+    counts = _all_counts()
+    return {k: counts[k] for k in kinds}
+
+
+TRAIN_PATH = ("flash_attention", "decode_attention", "token_logprob_entropy",
+              "token_logprob_entropy_bwd", "a3po_loss", "a3po_loss_bwd")
+ASYNC_PATH = ("paged_decode_attention", "paged_prefill_attention",
+              "token_logprob_entropy", "token_logprob_entropy_bwd",
+              "a3po_loss", "a3po_loss_bwd")
+SERVE_PATH = ("paged_decode_attention", "paged_prefill_attention")
+
+
+def phase_resume(torch, tmp):
+    """(a) The launcher at Qwen2.5-1.5B, full width, 4 layers, a3po at
+    staleness 1, layer weights x8, seeded Bernoulli rewards: run A
+    uninterrupted (--steps 4 --ckpt-every 2), run B the same with
+    --fault train_crash@3 (must raise InjectedFault), run C --resume auto
+    on B's directory (must resume at step 2; it commits no checkpoint of
+    its own). C's final params, Adam m, v and t, and version equal A's bit
+    for bit, and so do the step-2 and step-3 records; the same resume with
+    the rollout generator's state left behind (a copy of C's ResumeInfo)
+    must not. Prints the bytes, save and restore seconds of each
+    checkpoint and the free disk at the start. Returns run A's
+    launches."""
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.obs.runlog import read_jsonl
+    from repro_torch.resilience import InjectedFault
+
+    t_phase = time.perf_counter()
+    free0 = shutil.disk_usage(tmp).free
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b"),
+                              num_layers=RES_LAYERS)
+    dir_a, dir_b = tmp / "ckpt_a", tmp / "ckpt_b"
+    base = ["--steps", str(RES_STEPS), "--staleness", "1",
+            "--ckpt-every", str(RES_CKPT_EVERY)]
+    logs = {k: str(tmp / f"resume_{k}.jsonl") for k in "abc"}
+    kept = {}
+    with _scaled_launcher(torch, train, cfg, kept), \
+            _timed_checkpoints(torch) as (saves, restores):
+        _reset_counts()
+        t0 = time.perf_counter()
+        _launch(train, base + ["--ckpt-dir", str(dir_a),
+                               "--log-jsonl", logs["a"]])
+        run_a_s = time.perf_counter() - t0
+        launches = _path_counts(TRAIN_PATH)
+        state_a = kept.pop("state")
+        shutil.rmtree(dir_a)  # compared from memory from here on
+        try:
+            _launch(train, base + ["--ckpt-dir", str(dir_b), "--fault",
+                                   f"train_crash@{RES_CRASH_AT}",
+                                   "--log-jsonl", logs["b"]])
+        except InjectedFault as e:  # the fault this run exists to raise
+            crash = str(e)
+        else:
+            raise AssertionError("resume: train_crash did not raise")
+        kept["call"] = None
+        t0 = time.perf_counter()
+        _launch(train, ["--steps", str(RES_STEPS), "--staleness", "1",
+                        "--ckpt-dir", str(dir_b), "--resume", "auto",
+                        "--log-jsonl", logs["c"]])
+        run_c_s = time.perf_counter() - t0
+        diff = _state_diff(torch, state_a, kept.pop("state"))
+    shutil.rmtree(dir_b)
+    # teeth: C's resume again, the generator as seeded
+    cfg_, rl, task_cls, algo, steps, kw = kept.pop("call")
+    kw["resume"].generator_state = None
+    state_d, recs_d = train.simulate_async(
+        cfg_, rl, task_cls(max_operand=9, n_terms=2, prompt_len=8), algo,
+        steps, **dict(kw, run_logger=None))
+    teeth = _state_diff(torch, state_a, state_d)
+    del state_d, kw
+    recs = {k: read_jsonl(p) for k, p in logs.items()}
+    resumed = read_jsonl(logs["c"], kind="resume")
+    keys = ("loss", "reward", "iw_max", "iw_min", "entropy")
+
+    def rows(k, steps):
+        return [[r[x] for x in keys] for r in recs[k] if r["step"] in steps]
+    rec = {"phase": "resilience_resume", "model": cfg.name,
+           "layers": RES_LAYERS, "dtype": "bfloat16",
+           "layer_weight_scale": SCALE, "algo": "a3po", "staleness": 1,
+           "rewards": "seeded Bernoulli(0.5) from the task's RNG",
+           "steps": RES_STEPS, "ckpt_every": RES_CKPT_EVERY,
+           "crash": crash, "free_disk_gb_at_start": free0 / 1e9,
+           "saves": saves, "restores": restores,
+           "bytes_per_save": [s["bytes"] for s in saves],
+           "run_a_s": run_a_s, "run_c_s": run_c_s,
+           "steps_by_run": dict({k: [r["step"] for r in v]
+                                 for k, v in recs.items()},
+                                d=[r.step for r in recs_d]),
+           "resumed_at": [r["step"] for r in resumed],
+           "first_steps_a_equal_b": rows("a", (0, 1)) == rows("b", (0, 1)),
+           "records_equal_after_resume": rows("a", (2, 3))
+           == rows("c", (2, 3)),
+           "bit_equal": not diff, "differing": diff[:24],
+           "n_differing": len(diff),
+           "unrestored_generator_differs": bool(teeth),
+           "unrestored_generator_n_differing": len(teeth),
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    if (diff or not teeth or not rec["records_equal_after_resume"]
+            or rec["resumed_at"] != [2]
+            or rec["steps_by_run"]["c"] != [2, 3]
+            or rec["steps_by_run"]["a"] != list(range(RES_STEPS))
+            or len(saves) != 3 or len(restores) != 1
+            or any(v <= 0 for v in launches.values())):
+        raise AssertionError(f"resume: {rec}")
+    del state_a, kept
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_guard(torch, tmp):
+    """(b) The launcher at Qwen2.5-1.5B, full width and depth, layer
+    weights x8, seeded Bernoulli rewards, --fault nan_grad@1 --guard skip:
+    one reward of step 1 is NaN, which poisons its group's minibatch (the
+    step's other minibatch holds no NaN); the guard skips exactly that
+    update, which leaves the params and the whole Adam state (m, v, t) bit
+    for bit as they were before it; every param stays finite, the nan_grad
+    counter counts the fault. The logprob and A-3PO kernels run on the
+    non-finite inputs. Returns the run's launches."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.obs.runlog import read_jsonl
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import flatten
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-1.5b")
+    log = str(tmp / "guard.jsonl")
+    kept, updates = {}, []
+    plain_update = trainer.adam_update
+
+    def update(grads, opt, params, rl, **kw):
+        """Each guarded minibatch update: the moments and t before it, and
+        for an update the guard dropped, whether params and the Adam
+        state came out bit for bit as they went in."""
+        mv = {k: t.clone() for k, t in flatten(
+            {"m": opt["m"], "v": opt["v"]}).items()}
+        t_before = opt["t"].clone()
+        out = plain_update(grads, opt, params, rl, **kw)
+        applied = bool(kw["apply"])
+        rec = {"applied": applied}
+        if not applied:
+            new, old = flatten(out[0]), flatten(params)
+            now = flatten({"m": opt["m"], "v": opt["v"]})
+            rec.update(
+                params_same=all(torch.equal(new[k], old[k]) for k in old),
+                adam_same=all(torch.equal(now[k], mv[k]) for k in now)
+                and torch.equal(opt["t"], t_before))
+        updates.append(rec)
+        del mv
+        return out
+
+    trainer.adam_update = update
+    try:
+        with _scaled_launcher(torch, train, cfg, kept):
+            _reset_counts()
+            t0 = time.perf_counter()
+            _launch(train, ["--steps", "3", "--fault", "nan_grad@1",
+                            "--guard", "skip", "--log-jsonl", log])
+            elapsed = time.perf_counter() - t0
+            launches = _path_counts(TRAIN_PATH)
+    finally:
+        trainer.adam_update = plain_update
+    recs = read_jsonl(log)
+    guard = kept["resilience"].guard
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in flatten(kept["state"].params).values())
+    snap = recs[-1]["resilience"]
+    skipped = [i for i, u in enumerate(updates) if not u["applied"]]
+    rec = {"phase": "resilience_guard", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": "bfloat16",
+           "layer_weight_scale": SCALE, "steps": len(recs),
+           "elapsed_s": elapsed, "minibatch_updates": updates,
+           "skipped_update_index": skipped,
+           "skipped_updates": guard.skipped_updates,
+           "loss": [r["loss"] for r in recs],
+           "nan_grad_injected": snap.get(
+               'resilience_faults_injected_total{kind="nan_grad"}', 0.0),
+           "skipped_updates_counter": snap.get(
+               "resilience_skipped_updates_total", 0.0),
+           "params_finite": finite, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    # 3 steps x 2 minibatches; step 1's poisoned one is update 2 or 3
+    if (guard.skipped_updates != 1 or len(updates) != 6
+            or len(skipped) != 1 or skipped[0] not in (2, 3)
+            or not updates[skipped[0]]["params_same"]
+            or not updates[skipped[0]]["adam_same"] or not finite
+            or rec["nan_grad_injected"] < 1 or not np.isfinite(
+                recs[-1]["loss"])
+            or any(v <= 0 for v in launches.values())):
+        raise AssertionError(f"guard: {rec}")
+    del kept
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _time_paged(torch, seen, label):
+    """Paged decode and prefill timed on the inputs of their last call in
+    a run, beside their plain versions, SDPA over K/V gathered to dense,
+    and the bound for the keys these inputs hold (each row's keys once,
+    each segment's pages once)."""
+    from repro_torch.kernels.decode_attn.ops import paged_decode_attention_op
+    from repro_torch.kernels.decode_attn.ref import paged_decode_attention_ref
+    from repro_torch.kernels.prefill_attn.ops import (
+        paged_prefill_attention_op,
+    )
+    from repro_torch.kernels.prefill_attn.ref import (
+        paged_prefill_attention_ref,
+    )
+    timer = Timer(torch)
+    out = {}
+    with torch.no_grad():
+        if "paged_decode_attention" in seen:
+            (q, pk, pv, tables, lens), _ = seen["paged_decode_attention"]
+            dname = str(pk.dtype).split(".")[-1]
+            S, H, hd = q.shape
+            KV = pk.shape[2]
+            n_keys = int(lens.clamp_min(0).sum())
+            nbytes = (2 * q.numel() * q.element_size()
+                      + 2 * n_keys * KV * hd * pk.element_size()
+                      + tables.numel() * 4 + lens.numel() * 4)
+            rec = {"phase": "kernel", "name": "paged_decode_attention",
+                   "case": label, "dtype": dname,
+                   "shape": {"S": S, "H": H, "KV": KV, "hd": hd,
+                             "bs": pk.shape[1], "mb": tables.shape[1],
+                             "keys": n_keys}}
+            rec.update(_times(
+                torch, timer, dname, nbytes, 4 * H * hd * n_keys,
+                lambda: paged_decode_attention_op(q, pk, pv, tables, lens),
+                lambda: paged_decode_attention_ref(q, pk, pv, tables, lens),
+                _sdpa_dense(torch, q, pk, pv, tables, lens)))
+            emit(rec)
+            out["paged_decode_attention"] = rec
+        if "paged_prefill_attention" in seen:
+            (q, pk, pv, tables, seg, pos), _ = seen[
+                "paged_prefill_attention"]
+            dname = str(pk.dtype).split(".")[-1]
+            C, H, hd = q.shape
+            KV = pk.shape[2]
+            pad = seg < 0
+            row_keys = torch.where(pad, 0, pos + 1)
+            seg_keys = sum(int(row_keys[seg == s].max())
+                           for s in torch.unique(seg[~pad]).tolist())
+            nbytes = (2 * q.numel() * q.element_size()
+                      + 2 * seg_keys * KV * hd * pk.element_size()
+                      + tables.numel() * 4 + 2 * C * 4)
+            rec = {"phase": "kernel", "name": "paged_prefill_attention",
+                   "case": label, "dtype": dname,
+                   "shape": {"C": C, "H": H, "KV": KV, "hd": hd,
+                             "bs": pk.shape[1], "mb": tables.shape[1],
+                             "pad_rows": int(pad.sum()),
+                             "row_keys": int(row_keys.sum()),
+                             "segment_keys": seg_keys}}
+            rec.update(_times(
+                torch, timer, dname, nbytes,
+                4 * H * hd * int(row_keys.sum()),
+                lambda: paged_prefill_attention_op(q, pk, pv, tables, seg,
+                                                   pos),
+                lambda: paged_prefill_attention_ref(q, pk, pv, tables, seg,
+                                                    pos),
+                _sdpa_dense(torch, q, pk, pv,
+                            tables[seg.clamp_min(0).long()], row_keys),
+                plain_iters=5))
+            emit(rec)
+            out["paged_prefill_attention"] = rec
+    del timer
+    return out
+
+
+def phase_async_faults(torch, tmp):
+    """(c) `--engine async` at Qwen2.5-1.5B, full width and depth, layer
+    weights x8, seeded Bernoulli rewards, under a rollout crash, a failed
+    publish, KV blocks held hostage and a poisoned logits row: every step
+    completes, the worker was restarted, each fault fired, no trained
+    batch carries a non-finite behaviour logp, the hold ended, both paged
+    kernels (and both training kernels) ran, and the port's
+    obs.validate accepts the run log; the paged kernels held against
+    their plain versions and timed on the inputs of their last call.
+    Returns the run's launches and the kernels' times."""
+    import numpy as np
+    from repro_torch.async_rl import orchestrator as orch_mod
+    from repro_torch.launch import train
+    from repro_torch.obs.runlog import read_jsonl
+    from repro_torch.obs.validate import validate_jsonl
+
+    t_phase = time.perf_counter()
+    kept, nonfinite = {}, []
+
+    def assemble(batches, rewards, **kw):
+        nonfinite.append(sum(int((~np.isfinite(b.gen_logp)).sum())
+                             for b in batches))
+        return plain_assemble(batches, rewards, **kw)
+
+    log = str(tmp / "async_faults.jsonl")
+    plain_assemble = orch_mod.assemble_train_batch
+    orch_mod.assemble_train_batch = assemble
+    argv = ["--steps", "4", "--staleness", "2", "--engine", "async",
+            "--log-jsonl", log]
+    for f in ASYNC_FAULTS:
+        argv += ["--fault", f]
+    try:
+        with _scaled_orchestrator(torch, train, kept), \
+                _capture_ops(torch, _paged_sites()) as seen:
+            _reset_counts()
+            t0 = time.perf_counter()
+            _launch(train, argv)
+            elapsed = time.perf_counter() - t0
+            launches = _path_counts(ASYNC_PATH)
+    finally:
+        orch_mod.assemble_train_batch = plain_assemble
+    recs = read_jsonl(log)
+    orch = kept["orch"]
+    cp = orch.control_plane
+    snap = recs[-1]["resilience"] if recs else {}
+    injected = {f.split("@")[0]: snap.get(
+        f'resilience_faults_injected_total{{kind="{f.split("@")[0]}"}}', 0.0)
+        for f in ASYNC_FAULTS}
+    errors = validate_jsonl(log, min_steps=4)
+    rec = {"phase": "resilience_async", "model": orch.cfg.name,
+           "layers": orch.cfg.num_layers, "dtype": "bfloat16",
+           "faults": list(ASYNC_FAULTS), "steps": [r["step"] for r in recs],
+           "elapsed_s": elapsed, "injected": injected,
+           "worker_restarts": snap.get("resilience_worker_restarts_total"),
+           "publish_retries": snap.get("resilience_publish_retries_total"),
+           "worker_crashes": [c.exc_type for c in orch.worker.crashes],
+           "nonfinite_behaviour_logps": nonfinite,
+           "kv_holds_after": len(cp._kv_holds),
+           "oom_sheds": cp.metrics.oom_sheds,
+           "nan_drops": cp.metrics.nan_drops,
+           "staleness": [r["staleness_mean"] for r in recs],
+           "validate_errors": errors, "launches": launches}
+    emit(rec)
+    if (rec["steps"] != [0, 1, 2, 3] or not rec["worker_restarts"]
+            or any(v < 1 for v in injected.values()) or sum(nonfinite)
+            or not nonfinite or cp._kv_holds or errors
+            or orch.worker.alive
+            or any(v <= 0 for v in launches.values())):
+        raise AssertionError(f"async under faults: {rec}")
+    held = _hold_paged_kernels(torch, seen)
+    timed = _time_paged(torch, seen, "engine_async_faults")
+    emit({"phase": "resilience_async_checks", "kernels": held,
+          "phase_s": time.perf_counter() - t_phase})
+    del seen, kept, orch, cp
+    torch.cuda.empty_cache()
+    return launches, timed
+
+
+def phase_loadgen(torch, tmp, smi):
+    """(d) `python -m repro_torch.loadgen --arch qwen2.5-1.5b --quick`
+    (float32, full width and depth, seeded weights, the paged engine
+    through the serving control plane on a virtual clock) twice with one
+    seed: the lifecycle JSONL files byte-identical and valid under the
+    port's validate_loadgen_jsonl; the paged kernels held and timed on the
+    inputs of their last call. One replay with --fault kv_exhaust@…. Then
+    fit_cost_model on the card at the replay's geometry, its coefficients
+    printed beside the card's name and power limit. Returns the first
+    replay's launches and the kernels' times."""
+    import filecmp
+    import json as _json
+    from repro_torch.configs.registry import get_config
+    from repro_torch.loadgen.__main__ import main as loadgen_main
+    from repro_torch.loadgen.costfit import describe, fit_cost_model
+    from repro_torch.models import model as M
+    from repro_torch.obs.validate import validate_loadgen_jsonl
+
+    t_phase = time.perf_counter()
+    paths = [tmp / f"loadgen_{i}.jsonl" for i in range(3)]
+    walls, launches = [], None
+    for i, path in enumerate(paths):
+        argv = list(LOADGEN_ARGS) + ["--jsonl", str(path)]
+        if i == 2:
+            argv += ["--fault", LOADGEN_FAULT]
+        with _capture_ops(torch, _paged_sites()) as seen:
+            _reset_counts()
+            t0 = time.perf_counter()
+            if loadgen_main(argv) != 0:
+                raise AssertionError(f"loadgen {argv} failed")
+            walls.append(time.perf_counter() - t0)
+            counts = _path_counts(SERVE_PATH)
+        if i == 0:
+            launches, first = counts, seen
+    summaries = [[_json.loads(ln) for ln in p.read_text().splitlines()
+                  if '"load_summary"' in ln][0] for p in paths]
+    rec = {"phase": "loadgen", "args": list(LOADGEN_ARGS),
+           "wall_s": walls, "launches": launches,
+           "identical_jsonl": filecmp.cmp(paths[0], paths[1], shallow=False),
+           "validate_errors": [validate_loadgen_jsonl(str(p), min_requests=5)
+                               for p in paths],
+           "summary": {k: summaries[0][k] for k in (
+               "requests", "completed", "dropped", "steps",
+               "virtual_time_s")},
+           "fault": LOADGEN_FAULT,
+           "fault_summary": {k: summaries[2][k] for k in (
+               "requests", "completed", "dropped", "steps",
+               "virtual_time_s")}}
+    emit(rec)
+    if (not rec["identical_jsonl"] or any(rec["validate_errors"])
+            or any(v <= 0 for v in launches.values())
+            or summaries[2]["completed"] + summaries[2]["dropped"]
+            != summaries[2]["requests"]):
+        raise AssertionError(f"loadgen: {rec}")
+    held = _hold_paged_kernels(torch, first)
+    timed = _time_paged(torch, first, "loadgen_replay")
+    emit({"phase": "loadgen_checks", "kernels": held})
+    del first
+
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b"), dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    cost = fit_cost_model(cfg, params, max_seqs=4, decode_horizon=4,
+                          prefill_chunk=16, block_size=8, device="cuda")
+    fit = {"phase": "loadgen_cost_fit", "model": cfg.name,
+           "dtype": "float32", "card": smi,
+           "geometry": {"max_seqs": 4, "decode_horizon": 4,
+                        "prefill_chunk": 16, "block_size": 8},
+           "cost": dataclasses.asdict(cost), "describe": describe(cost),
+           "fit_s": time.perf_counter() - t0,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(fit)
+    if min(dataclasses.astuple(cost)) <= 0:
+        raise AssertionError(f"cost fit: {fit}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, timed
 
 
 @contextlib.contextmanager
@@ -3487,7 +4073,7 @@ def phase_ssm_serving(torch, name):
 
 def main() -> int:
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     import torch
     phase_build()
     with torch.no_grad():
@@ -3508,6 +4094,17 @@ def main() -> int:
         phase_async_rl(torch, Path(tmp))
         torch.cuda.empty_cache()
         cp_launches = phase_control_plane(torch, Path(tmp))
+        torch.cuda.empty_cache()
+        # the fault-tolerance runtime and the load harness, each path
+        # driven with the counts set to 0 just before it
+        by_path = {"resume": phase_resume(torch, Path(tmp)),
+                   "guard": phase_guard(torch, Path(tmp))}
+        by_path["engine_async_faults"], async_times = phase_async_faults(
+            torch, Path(tmp))
+        by_path["loadgen_replay"], loadgen_times = phase_loadgen(
+            torch, Path(tmp), smi)
+    at_paths = {"engine_async_faults": async_times,
+                "loadgen_replay": loadgen_times}
     torch.cuda.empty_cache()
     with torch.no_grad():
         kernels.update(phase_ssd_kernels(torch))
@@ -3564,9 +4161,17 @@ def main() -> int:
                 "peak_mem_gb_above_inputs"]
         if "splits" in k:
             line[-1]["splits"] = k["splits"]
-        by_path = {p: n[name] for p, n in cp_launches.items() if name in n}
-        if by_path:
-            line[-1]["control_plane_launches"] = by_path
+        cp_by_path = {p: n[name] for p, n in cp_launches.items()
+                      if name in n}
+        if cp_by_path:
+            line[-1]["control_plane_launches"] = cp_by_path
+        line[-1]["launches_by_path"] = {p: n[name] for p, n in by_path.items()
+                                        if name in n}
+        timed = {p: {k: t[name][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "dtype",
+            "shape")} for p, t in at_paths.items() if name in t}
+        if timed:
+            line[-1]["at_paths"] = timed
         for extra in ("launch_floor_ms", "parent_path_ms", "path_ms"):
             if extra in k:
                 line[-1][extra] = k[extra]

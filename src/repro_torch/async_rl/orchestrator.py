@@ -22,8 +22,18 @@ hands the published tree to the rollout thread. An in-place update would
 turn every behaviour policy into the current one while the staleness
 stamps still read ``d``.
 
-Not ported yet (raises ``NotImplementedError``): the fault-tolerance
-runtime (``resilience=``, ``resume=``, ROADMAP queue 1 "resilience/").
+Fault tolerance (``repro_torch.resilience``): both modes accept a
+``ResilienceConfig``. The rollout worker runs under a ``SupervisedWorker``
+(heartbeats, capture, bounded seeded restarts), queue pops go through
+``pop_with_health`` (a dead producer raises instead of deadlocking the
+trainer), weight publishes retry with backoff, a ``TrainGuard`` applies
+skip/rollback policies to non-finite updates, periodic crash-consistent
+checkpoints capture params/opt/step/RNG/weight-version, and a seeded
+``FaultPlan`` can inject crashes/stalls/NaNs at any of those sites.
+``StepRecord.resilience`` snapshots the ``resilience_*`` counters.
+``simulate_async(resume=)`` continues a checkpointed run bit for bit: the
+rollout ``torch.Generator``'s state is checkpointed where the reference
+keeps its JAX key.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ from repro_torch.obs.tracing import (
     span,
     step_annotation,
 )
+from repro_torch.resilience.faults import resilience_snapshot
+from repro_torch.resilience.publish import ResilientPublisher
 from repro_torch.resilience.supervisor import (
     SupervisedWorker,
     pop_with_health,
@@ -58,14 +70,9 @@ from repro_torch.training.trainer import (
     assemble_train_batch,
 )
 
-# how long the trainer waits for a fresh batch before it gives up (the
-# reference's RolloutQueue.pop_fresh default)
+# how long the trainer waits for a fresh batch before it gives up without
+# a ResilienceConfig (the reference's RolloutQueue.pop_fresh default)
 POP_DEADLINE_S = 30.0
-
-_NOT_PORTED = {
-    "resilience": "the fault-tolerance runtime is not ported yet (ROADMAP "
-                  "queue 1, 'resilience/')",
-}
 
 
 @dataclasses.dataclass
@@ -91,7 +98,9 @@ class StepRecord:
     # prox pass of the 'recompute' baseline)
     train_tokens: float = 0.0
     host_syncs: float = 0.0
-    # resilience_* counter snapshot (not ported: always None here)
+    # resilience_* counter snapshot (faults injected, worker restarts,
+    # skipped updates, checkpoint saves/restores) when a ResilienceConfig
+    # is active
     resilience: Optional[Dict[str, float]] = None
 
 
@@ -109,9 +118,22 @@ def _rollout_once(engine: RolloutEngine, task: ArithmeticTask, params,
     return rb, rewards
 
 
+def _inject_nan_reward(rewards: np.ndarray, faults) -> np.ndarray:
+    """``nan_grad`` fault: poison one reward (seeded choice). Advantages,
+    loss, and every gradient leaf go non-finite — exactly what the
+    on-device guard must catch."""
+    spec = faults.check("nan_grad") if faults is not None else None
+    if spec is None:
+        return rewards
+    rewards = np.asarray(rewards, np.float32).copy()
+    rewards[int(faults.rng.integers(len(rewards)))] = np.nan
+    return rewards
+
+
 def _record(step: int, m: Dict[str, float], rollout_t: float,
             train_t: float, t_start: float,
-            serving: Optional[Dict[str, float]] = None) -> StepRecord:
+            serving: Optional[Dict[str, float]] = None,
+            resilience=None) -> StepRecord:
     return StepRecord(
         step=step, reward=m["reward_mean"], loss=m["loss"],
         entropy=m.get("entropy", 0.0), iw_max=m["iw_max"],
@@ -120,7 +142,20 @@ def _record(step: int, m: Dict[str, float], rollout_t: float,
         rollout_time_s=rollout_t, train_time_s=train_t,
         wall_time_s=time.perf_counter() - t_start, serving=serving,
         train_tokens=m.get("tokens", 0.0),
-        host_syncs=m.get("host_syncs", 0.0))
+        host_syncs=m.get("host_syncs", 0.0),
+        resilience=(None if resilience is None else resilience_snapshot()))
+
+
+def _restore_params(resilience, state: TrainState) -> Optional[TrainState]:
+    """Rollback: the latest checkpoint's params and Adam state under the
+    live version (the version keeps counting, so staleness stamps stay
+    monotonic); None without a checkpointer or a usable checkpoint."""
+    if resilience is None or resilience.checkpointer is None:
+        return None
+    info = resilience.checkpointer.restore_latest(state.version.device)
+    if info is None:
+        return None
+    return TrainState(info.state.params, info.state.opt, state.version)
 
 
 class AsyncOrchestrator:
@@ -130,6 +165,7 @@ class AsyncOrchestrator:
     (``core.algorithms``); dispatch is entirely the Trainer's. The trainer
     waits for batches through ``pop_with_health``: a crashed rollout worker
     raises ``WorkerFailed`` instead of leaving the trainer to time out.
+    ``resilience`` is an optional ``repro_torch.resilience.ResilienceConfig``.
     """
 
     def __init__(self, cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
@@ -139,14 +175,17 @@ class AsyncOrchestrator:
                  serve_kwargs: Optional[Dict] = None,
                  decode_horizon: int = 8,
                  resilience=None):
-        if resilience is not None:
-            raise NotImplementedError(_NOT_PORTED["resilience"])
         self.cfg, self.rl, self.task = cfg, rl, task
         self.n_prompts = n_prompts
         self.max_new_tokens = max_new_tokens
         self.engine = RolloutEngine(cfg, rl, max_new_tokens)
-        self.trainer = Trainer(cfg, rl, algo)
+        self.resilience = resilience
+        guard = resilience.guard if resilience is not None else None
+        self.trainer = Trainer(
+            cfg, rl, algo,
+            skip_nonfinite=(guard is not None and guard.policy != "off"))
         self.algo = self.trainer.algo
+        self.guard = guard
         self.queue = RolloutQueue(queue_capacity, rl.max_staleness)
         self.seed = seed
         self._stop = threading.Event()
@@ -163,6 +202,11 @@ class AsyncOrchestrator:
         self._serve_kwargs = serve_kwargs or {}
         self.control_plane = None
         self.worker = None  # the SupervisedWorker of the last run()
+
+    @property
+    def _faults(self):
+        return self.resilience.faults if self.resilience is not None \
+            else None
 
     def _build_control_plane(self, store: WeightStore, device):
         # imported here: serving imports async_rl's queue and weight store
@@ -181,7 +225,7 @@ class AsyncOrchestrator:
         return ServingControlPlane(
             srv, store,
             AdmissionScheduler(SchedulerConfig(d_max=self.rl.max_staleness)),
-            rollout_queue=self.queue)
+            rollout_queue=self.queue, faults=self._faults)
 
     def _rollout_once_cp(self, generator: torch.Generator):
         """Group rollout through the serving control plane: GRPO members
@@ -200,10 +244,17 @@ class AsyncOrchestrator:
 
     def _rollout_worker(self, ctx, store: WeightStore, device) -> None:
         """Supervised worker body: loops until told to stop, heartbeats
-        every iteration."""
+        every iteration, raises on injected crashes (the supervisor
+        captures + restarts)."""
+        faults = self._faults
         generator = torch.Generator(device=device).manual_seed(self.seed + 1)
         while not ctx.should_stop():
             ctx.heartbeat()
+            if faults is not None:
+                faults.maybe_crash("rollout_crash")
+                stall = faults.check("queue_stall")
+                if stall is not None and stall.magnitude > 0:
+                    time.sleep(stall.magnitude)
             t0 = time.perf_counter()
             if self.control_plane is not None:
                 rb, rewards = self._rollout_once_cp(generator)
@@ -225,50 +276,89 @@ class AsyncOrchestrator:
             except QueueClosed:
                 return  # consumer went away: clean exit
 
+    def _checkpoint(self, step_done: int, state: TrainState) -> None:
+        res = self.resilience
+        if res is not None and res.maybe_checkpoint(step_done):
+            res.checkpointer.save(
+                step_done + 1, state,
+                task_rng_state=self.task.rng.bit_generator.state,
+                extra={"algo": self.algo.name, "mode": "async"})
+
+    def _apply_guard(self, state: TrainState, m: Dict[str, float]
+                     ) -> TrainState:
+        """Host-side guard policy on the step's (already transferred)
+        metrics; a rollback restores the latest checkpoint's params and
+        Adam state under the live version."""
+        if self.guard is None:
+            return state
+        if self.guard.after_step(m).action == "rollback":
+            state = _restore_params(self.resilience, state) or state
+        return state
+
     def run(self, state: TrainState, num_steps: int,
             run_logger=None, start_step: int = 0
             ) -> (TrainState, List[StepRecord]):
         """Drive training steps ``start_step..num_steps-1`` against the
         live rollout worker. ``run_logger`` (``obs.runlog.RunLogger``)
         gets exactly one JSONL step record per training step."""
+        res = self.resilience
         self._stop.clear()
         device = state.version.device
         version = int(state.version)
         store = WeightStore(state.params, version)
+        publisher = None
+        if res is not None:
+            publisher = ResilientPublisher(
+                store, faults=res.faults,
+                max_retries=res.publish_max_retries, seed=res.seed)
         if self.use_control_plane:
             self.control_plane = self._build_control_plane(store, device)
         self.worker = SupervisedWorker(
             "rollout-worker", self._rollout_worker, args=(store, device),
-            max_restarts=0, heartbeat_timeout_s=60.0, seed=0,
+            max_restarts=(res.max_worker_restarts if res is not None
+                          else 0),
+            heartbeat_timeout_s=(res.heartbeat_timeout_s if res is not None
+                                 else 60.0),
+            seed=(res.seed if res is not None else 0),
             stop_event=self._stop)
+        deadline = res.pop_deadline_s if res is not None else POP_DEADLINE_S
         t_start = time.perf_counter()
         self.worker.start()
         records: List[StepRecord] = []
+        faults = self._faults
         try:
             for step in range(start_step, num_steps):
+                if faults is not None:
+                    faults.maybe_crash("train_crash")
                 with step_annotation(step):
                     batches = pop_with_health(
                         self.queue, self.worker, version, n=1,
-                        deadline_s=POP_DEADLINE_S)
+                        deadline_s=deadline)
                     rewards = np.concatenate([b.rewards for b in batches])
+                    rewards = _inject_nan_reward(rewards, faults)
                     tb = assemble_train_batch(batches, rewards,
                                               device=device)
                     t0 = time.perf_counter()
                     with span("train_step", step=step):
                         state, m = self.trainer.step(state, tb)
                     train_t = time.perf_counter() - t0
+                    state = self._apply_guard(state, m)
                     version += 1  # Trainer.step advances it by one
                     with span("weight_publish", version=version):
-                        store.publish(state.params, version)
+                        if publisher is not None:
+                            publisher.publish(state.params, version)
+                        else:
+                            store.publish(state.params, version)
                         # open the publish->resume flow arrow (closed by
                         # the first rollout/serving step under `version`)
                         flow_start("publish", version)
+                self._checkpoint(step, state)
                 serving = (self.control_plane.metrics.snapshot()
                            if self.control_plane is not None else None)
                 records.append(_record(
                     step, m, (np.mean(self._rollout_times[-3:])
                               if self._rollout_times else 0.0),
-                    train_t, t_start, serving))
+                    train_t, t_start, serving, res))
                 if run_logger is not None:
                     run_logger.log_step(records[-1])
         finally:
@@ -299,29 +389,54 @@ def simulate_async(cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
     results land in ``StepRecord.eval_reward``. ``run_logger``
     (``obs.runlog.RunLogger``) gets one JSONL step record per step.
 
-    The run lives on ``init_state``'s device, or on ``device`` (default the
-    card) where it initialises the state from ``seed + 7``. One
-    ``torch.Generator`` seeded from ``seed`` drives every rollout's
-    sampling, where the reference splits a key per step.
+    The run lives on ``init_state``'s (or ``resume``'s) device, or on
+    ``device`` (default the card) where it initialises the state from
+    ``seed + 7``. One ``torch.Generator`` seeded from ``seed`` drives every
+    rollout's sampling, where the reference splits a key per step.
+
+    ``resilience`` (``repro_torch.resilience.ResilienceConfig``) enables
+    periodic checkpoints, guard policies, and fault injection; ``resume``
+    (``repro_torch.resilience.ResumeInfo``, e.g. from
+    ``CheckpointManager.restore_latest()``) continues a checkpointed run —
+    params, Adam state, weight version, the rollout generator's state,
+    staleness history, and the task's RNG stream are all restored, so the
+    resumed run is bit-identical to the uninterrupted one from that step.
     """
-    if resilience is not None or resume is not None:
-        raise NotImplementedError(_NOT_PORTED["resilience"])
+    guard = resilience.guard if resilience is not None else None
+    faults = resilience.faults if resilience is not None else None
     engine = RolloutEngine(cfg, rl, max_new_tokens)
-    trainer = Trainer(cfg, rl, algo, num_microbatches=num_microbatches)
-    if init_state is None:
+    trainer = Trainer(
+        cfg, rl, algo, num_microbatches=num_microbatches,
+        skip_nonfinite=(guard is not None and guard.policy != "off"))
+    start_step = 0
+    if resume is not None:
+        state = resume.state
+        start_step = resume.step
+    elif init_state is None:
         device = require_device(device)
         state = trainer.init_state(
             torch.Generator(device=device).manual_seed(seed + 7),
             device=device)
     else:
         state = init_state
-        device = state.version.device
+    device = state.version.device
     generator = torch.Generator(device=device).manual_seed(seed)
     version = int(state.version)
-    history: deque = deque([(state.params, version)], maxlen=staleness + 1)
+    history: deque = deque(maxlen=staleness + 1)
+    if resume is not None and resume.history is not None:
+        history.extend(resume.history)
+    else:
+        history.append((state.params, version))
+    if resume is not None:
+        if resume.generator_state is not None:
+            generator.set_state(resume.generator_state)
+        if resume.task_rng_state is not None:
+            task.rng.bit_generator.state = resume.task_rng_state
     records: List[StepRecord] = []
     t_start = time.perf_counter()
-    for step in range(num_steps):
+    for step in range(start_step, num_steps):
+        if faults is not None:
+            faults.maybe_crash("train_crash")
         behav_params, behav_version = history[0]
         t0 = time.perf_counter()
         with span("rollout", step=step, version=behav_version) as sp:
@@ -333,17 +448,31 @@ def simulate_async(cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
             # behavior policy first acts `staleness` steps after publish
             flow_end("publish", behav_version)
         rollout_t = time.perf_counter() - t0
+        rewards = _inject_nan_reward(rewards, faults)
         tb = assemble_train_batch([rb], rewards, device=device)
         t0 = time.perf_counter()
         with step_annotation(step), span("train_step", step=step,
                                          staleness=staleness):
             state, m = trainer.step(state, tb)
         train_t = time.perf_counter() - t0
+        if guard is not None and guard.after_step(m).action == "rollback":
+            restored = _restore_params(resilience, state)
+            if restored is not None:
+                state = restored
+                history.clear()
         version += 1  # Trainer.step advances it by one
         with span("weight_publish", version=version):
             history.append((state.params, version))
             flow_start("publish", version)
-        rec = _record(step, m, rollout_t, train_t, t_start)
+        if resilience is not None and resilience.maybe_checkpoint(step):
+            resilience.checkpointer.save(
+                step + 1, state, generator_state=generator.get_state(),
+                history=list(history),
+                task_rng_state=task.rng.bit_generator.state,
+                extra={"algo": trainer.algo.name, "mode": "sim",
+                       "staleness": staleness})
+        rec = _record(step, m, rollout_t, train_t, t_start,
+                      resilience=resilience)
         if eval_fn and eval_every and (step + 1) % eval_every == 0:
             rec.eval_reward = float(eval_fn(state.params))
         records.append(rec)

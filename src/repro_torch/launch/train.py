@@ -20,10 +20,16 @@ writes one schema-versioned record per step (the reference's schema);
 ``--quiet`` suppresses the human stdout lines; ``--metrics-prom FILE``
 dumps the metrics registry in prometheus text format at exit.
 
-Not ported yet; each exits non-zero naming the ROADMAP item that brings
-it: ``--mesh prod|prod-multipod`` (ROADMAP queue 1, "Distribution and
-launch"), ``--ckpt-dir``, ``--fault``, ``--guard`` and ``--resume`` (queue
-1, "resilience/"), with either engine.
+Fault tolerance (``repro_torch.resilience``), with either engine:
+``--ckpt-dir DIR --ckpt-every N`` commits crash-consistent checkpoints,
+``--resume auto|STEP`` continues from one (bit-identical to the
+uninterrupted run with ``--engine sim``), ``--fault KIND@AT[xN][:MAG]``
+(repeatable, seeded by ``--fault-seed``) injects deterministic faults and
+``--guard skip|rollback`` applies the non-finite update policy.
+
+Not ported yet; exits non-zero naming the ROADMAP item that brings it:
+``--mesh prod|prod-multipod`` (ROADMAP queue 1, "Distribution and
+launch").
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
@@ -32,6 +38,10 @@ Usage:
       --steps 4 --engine async
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch toy-2m --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
+      --steps 4 --ckpt-dir ckpts --ckpt-every 2 --fault train_crash@3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
+      --steps 4 --ckpt-dir ckpts --ckpt-every 2 --resume auto
   PYTHONPATH=src python -m repro_torch.launch.train --algo list
 """
 from __future__ import annotations
@@ -55,14 +65,17 @@ from repro_torch.models.model import require_device
 from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.runlog import RunLogger
 from repro_torch.obs.tracing import SpanTracer, install_tracer
+from repro_torch.resilience import (
+    CheckpointManager,
+    FaultPlan,
+    ResilienceConfig,
+    TrainGuard,
+)
 from repro_torch.training.checkpoints import save_checkpoint
 
 _NOT_PORTED = {
     "mesh": "--mesh prod / prod-multipod: sharded meshes are not ported yet "
             "(ROADMAP queue 1, 'Distribution and launch')",
-    "resilience": "--ckpt-dir / --fault / --guard / --resume: the "
-                  "fault-tolerance runtime is not ported yet (ROADMAP "
-                  "queue 1, 'resilience/')",
 }
 
 
@@ -115,14 +128,68 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-prom", default=None, metavar="FILE",
                    help="dump the metrics registry in prometheus text "
                         "format at exit")
-    # fault tolerance: not ported yet (refused below)
-    p.add_argument("--ckpt-dir", default=None, metavar="DIR")
-    p.add_argument("--resume", default=None, metavar="auto|STEP")
+    # fault tolerance (repro_torch.resilience)
+    p.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                   help="crash-consistent step-named checkpoints go here "
+                        "(atomic npz+json pairs with checksum + a 'latest' "
+                        "pointer)")
+    p.add_argument("--ckpt-every", type=int, default=0, metavar="N",
+                   help="commit a checkpoint every N completed steps "
+                        "(requires --ckpt-dir)")
+    p.add_argument("--resume", default=None, metavar="auto|STEP",
+                   help="'auto': resume from the newest valid checkpoint "
+                        "in --ckpt-dir (fresh start when none); an "
+                        "integer: resume from exactly that step's "
+                        "checkpoint. Sim-engine resume is bit-identical "
+                        "to the uninterrupted run.")
     p.add_argument("--fault", action="append", default=[],
-                   metavar="KIND@AT[xN][:MAG]")
+                   metavar="KIND@AT[xN][:MAG]",
+                   help="inject a deterministic fault (repeatable), e.g. "
+                        "rollout_crash@1, train_crash@3, publish_fail@0x2, "
+                        "queue_stall@2:0.5, nan_grad@4, kv_exhaust@5x3:64, "
+                        "nan_logits@2")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed for the fault plane's RNG (which row/reward "
+                        "gets poisoned, backoff jitter)")
     p.add_argument("--guard", default="off",
-                   choices=["off", "skip", "rollback"])
+                   choices=["off", "skip", "rollback"],
+                   help="non-finite update policy: 'skip' keeps the "
+                        "previous params/opt for poisoned minibatches "
+                        "(on the device, no extra host sync); 'rollback' "
+                        "also restores the last checkpoint when a step "
+                        "goes non-finite or diverges")
     return p
+
+
+def _resilience(args, device, log):
+    """(ResilienceConfig or None, ResumeInfo or None) from the flags."""
+    resilience = resume = None
+    if args.ckpt_dir or args.fault or args.guard != "off":
+        resilience = ResilienceConfig(
+            faults=(FaultPlan.from_strings(args.fault, seed=args.fault_seed)
+                    if args.fault else None),
+            guard=(TrainGuard(policy=args.guard) if args.guard != "off"
+                   else None),
+            checkpointer=(CheckpointManager(args.ckpt_dir)
+                          if args.ckpt_dir else None),
+            ckpt_every=args.ckpt_every, seed=args.fault_seed)
+    if args.resume:
+        if not args.ckpt_dir:
+            raise SystemExit("--resume requires --ckpt-dir")
+        ckpt = resilience.checkpointer
+        if args.resume == "auto":
+            resume = ckpt.restore_latest(device)
+        else:
+            resume = ckpt.restore(ckpt.path_for(int(args.resume)), device)
+        if resume is not None:
+            log.print(f"resuming at step {resume.step} "
+                      f"(version {int(resume.state.version)}) from "
+                      f"{resume.path}")
+            log.log_event("resume", step=resume.step, path=resume.path)
+        else:
+            log.print(f"--resume auto: no valid checkpoint in "
+                      f"{args.ckpt_dir}; starting fresh")
+    return resilience, resume
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -132,8 +199,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args.mesh != "local":
         raise SystemExit(_NOT_PORTED["mesh"])
-    if args.ckpt_dir or args.fault or args.guard != "off" or args.resume:
-        raise SystemExit(_NOT_PORTED["resilience"])
     if args.method:
         warnings.warn("--method is deprecated; use --algo",
                       DeprecationWarning)
@@ -164,20 +229,31 @@ def main(argv: Optional[List[str]] = None) -> None:
                   max_staleness=args.staleness + 1)
     task = ArithmeticTask(max_operand=9, n_terms=2, prompt_len=8)
     try:
+        resilience, resume = _resilience(args, device, log)
         if args.engine == "async":
             orch = AsyncOrchestrator(cfg, rl, task, algo, n_prompts=8,
                                      max_new_tokens=6,
-                                     use_control_plane=True)
-            state = orch.trainer.init_state(
-                torch.Generator(device=device).manual_seed(7), device=device)
-            state, recs = orch.run(state, args.steps, run_logger=log)
+                                     use_control_plane=True,
+                                     resilience=resilience)
+            start_step = 0
+            if resume is not None:
+                state = resume.state
+                start_step = resume.step
+                if resume.task_rng_state is not None:
+                    task.rng.bit_generator.state = resume.task_rng_state
+            else:
+                state = orch.trainer.init_state(
+                    torch.Generator(device=device).manual_seed(7),
+                    device=device)
+            state, recs = orch.run(state, args.steps, run_logger=log,
+                                   start_step=start_step)
         else:
             state, recs = simulate_async(
                 cfg, rl, task, algo, args.steps, n_prompts=8,
                 max_new_tokens=6,
                 staleness=0 if algo.on_policy else args.staleness,
                 num_microbatches=args.microbatch, run_logger=log,
-                device=device)
+                resilience=resilience, resume=resume, device=device)
         for r in recs[:: max(1, len(recs) // 8)]:
             log.print(
                 f"  step {r.step:3d} reward {r.reward:.3f} loss "

@@ -527,6 +527,16 @@ class ContinuousBatchingEngine:
             supply += self.prefix_cache.evictable_count()
         return max(self._write_need(self._decode_budget()) - supply, 0)
 
+    def prefill_block_shortfall(self) -> int:
+        """Blocks the next prefill chunk launch would need beyond what the
+        pool can supply (free + cache-evictable): a chunk that resumes a
+        radix-shared partial page forks it first. 0 when safe."""
+        supply = self.allocator.n_free
+        if self.prefix_cache is not None:
+            supply += self.prefix_cache.evictable_count()
+        work = self._gather_prefill_work()
+        return max(self._write_need({s: n for s, _, n in work}) - supply, 0)
+
     def free_slots(self) -> List[int]:
         return [s for s, r in self.slots.items() if r is None]
 

@@ -60,9 +60,10 @@ def rollout_batch(reqs: List, prompt_pad: int, max_new: int,
     """Finished requests (``rollout.continuous.Request``) -> a stamped
     ``RolloutBatch``: prompts left-aligned and padded to ``prompt_pad``,
     generations after them, per-token version stamps from the engine.
-    ``version`` stamps a request that generated nothing and the batch when
-    no request generated anything; otherwise the batch carries its oldest
-    token's version."""
+    A request that generated nothing is stamped with its
+    ``submit_version``, as the reference does; ``version`` stamps the batch
+    when no request generated anything, otherwise the batch carries its
+    oldest token's version."""
     B = len(reqs)
     tokens = np.full((B, prompt_pad + max_new), tok.PAD, np.int32)
     lengths = np.zeros((B,), np.int32)
@@ -81,7 +82,7 @@ def rollout_batch(reqs: List, prompt_pad: int, max_new: int,
         gen_logp[i, :n] = r.gen_logp
         gen_mask[i, :n] = 1.0
         gen_versions[i, :n] = r.token_versions
-        gen_versions[i, n:] = r.token_versions[-1] if n else version
+        gen_versions[i, n:] = r.token_versions[-1] if n else r.submit_version
     batch_version = int(gen_versions[gen_mask > 0].min()) \
         if B and gen_mask.any() else version
     return RolloutBatch(tokens=tokens, prompt_lengths=lengths,

@@ -19,9 +19,10 @@ into metrics.
 
 Sampling draws from an optional ``torch.Generator`` (the engine's
 ``step`` takes one), where the reference splits a JAX key per step; a
-greedy engine needs none. The seeded fault plane of the reference
-(``faults=``: KV blocks held hostage, poisoned logits) belongs to the
-fault-tolerance runtime, which is not ported yet: passing one raises.
+greedy engine needs none. ``faults=`` takes the seeded fault plane
+(``repro_torch.resilience.FaultPlan``): ``kv_exhaust`` holds free KV blocks
+hostage through the allocator, ``nan_logits`` writes NaN into one row of
+the engine's device logits buffer in place.
 """
 from __future__ import annotations
 
@@ -41,11 +42,6 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.scheduler import AdmissionScheduler, SchedulerConfig
 
-_FAULTS_NOT_PORTED = ("the serving fault hooks (faults=) belong to the "
-                      "fault-tolerance runtime, which is not ported yet "
-                      "(ROADMAP queue 1, 'resilience/')")
-
-
 class ServingControlPlane:
     def __init__(self, engine: ContinuousBatchingEngine, store: WeightStore,
                  scheduler: Optional[AdmissionScheduler] = None,
@@ -56,10 +52,12 @@ class ServingControlPlane:
                  prefill_budget: int = 2,
                  clock: Optional[Callable[[], float]] = None,
                  faults=None):
-        if faults is not None:
-            raise NotImplementedError(_FAULTS_NOT_PORTED)
         self.engine = engine
         self.store = store
+        # seeded fault plane (repro_torch.resilience.FaultPlan): kv_exhaust
+        # holds free KV blocks hostage, nan_logits poisons a decode row
+        self.faults = faults
+        self._kv_holds: List[int] = []
         # request-lifecycle clock: wall time by default; a replay harness
         # may inject a virtual clock so submit/admit/TTFT/done stamps are
         # trace-deterministic. Perf telemetry (decode_time_s etc.) always
@@ -129,6 +127,8 @@ class ServingControlPlane:
             self.metrics.interrupts += 1
             self.metrics.resumed_sequences += inflight
             sp.set(resumed_under_version=version, resumed=inflight)
+        if self.faults is not None:
+            self._fault_hooks()
 
         # preemption of in-flight work: staleness budget (base scheduler)
         # and SLO-overload eviction (an SLO-aware scheduler), with the
@@ -198,10 +198,18 @@ class ServingControlPlane:
         # decode lane in this same step (first token with zero extra
         # latency); longer prompts carry their cursor to the next
         # boundary while the decode lane below keeps emitting.
+        # A chunk whose writes the pool cannot supply (a radix-shared
+        # partial page to fork while the pool is held dry) waits for a
+        # later boundary instead of running the allocator out mid-fork;
+        # the reference launches it and raises (ROADMAP note f).
         if self.engine.prefilling_slots():
             t0 = time.perf_counter()
-            launched = self.engine.prefill_step(
-                params, version=version, max_chunks=self.prefill_budget)
+            launched = 0
+            while (launched < self.prefill_budget
+                   and self.engine.prefilling_slots()
+                   and not self.engine.prefill_block_shortfall()):
+                launched += self.engine.prefill_step(
+                    params, version=version, max_chunks=1)
             self.metrics.prefill_time_s += time.perf_counter() - t0
             self.metrics.prefill_chunks += launched
         self.metrics.prefill_compiles = self.engine.prefill_compiles
@@ -270,6 +278,34 @@ class ServingControlPlane:
             self.metrics.observe_finished(
                 staleness_values=[version - v for v in req.token_versions])
         return finished
+
+    # ----------------------------------------------------------- resilience
+    def _fault_hooks(self) -> None:
+        """Per-step fault-plane sites (seeded chaos testing).
+
+        ``kv_exhaust`` holds ``magnitude`` free KV blocks hostage while
+        the spec fires (consecutive serving steps) and releases them when
+        it stops — the shed path below must absorb the squeeze.
+        ``nan_logits`` poisons one slot's row of the decode logits buffer;
+        the non-finite filter must keep it out of the rollout data.
+        """
+        alloc = self.engine.allocator
+        spec = self.faults.check("kv_exhaust")
+        if spec is not None:
+            want = max(int(spec.magnitude), 1)
+            grab = min(want - len(self._kv_holds), alloc.n_free)
+            if grab > 0:
+                self._kv_holds.extend(alloc.alloc(grab))
+                instant("kv_exhaust_hold", held=len(self._kv_holds))
+        elif self._kv_holds:
+            alloc.release(self._kv_holds)
+            instant("kv_exhaust_release", released=len(self._kv_holds))
+            self._kv_holds = []
+        spec = self.faults.check("nan_logits")
+        if spec is not None:
+            row = int(self.faults.rng.integers(
+                self.engine._next_logits.shape[0]))
+            self.engine._next_logits[row] = float("nan")
 
     def _shed_for_blocks(self, version: int, now: float) -> None:
         """Shed decode-ready work until the next launch fits in the pool.

@@ -42,6 +42,7 @@ from repro_torch.data.tasks import ArithmeticTask
 from repro_torch.launch import train as launcher
 from repro_torch.models import model as tmodel
 from repro_torch.models.params import from_jax, walk
+from repro_torch.obs import validate as port_validate
 from repro_torch.resilience.supervisor import (
     SupervisedWorker,
     WorkerFailed,
@@ -390,14 +391,24 @@ def test_async_threaded_orchestrator(toy):
 
 
 def test_unported_options_refuse(toy):
+    """No option of the loop is refused any longer: ``resilience=`` (once
+    refused as ROADMAP queue 1's 'resilience/') is taken by both loops,
+    and a ``ResilienceConfig`` that injects nothing leaves every record's
+    metrics as they were, adding the ``resilience_*`` snapshot
+    (``resume=`` is held in ``tests/test_torch_resilience.py``)."""
+    from repro_torch.resilience import ResilienceConfig
     _, _, cfg, _ = toy
     _, trl = _rl()
-    with pytest.raises(NotImplementedError, match="resilience/"):
-        orch.AsyncOrchestrator(cfg, trl, _task(), resilience=object())
-    for kw in ({"resilience": object()}, {"resume": object()}):
-        with pytest.raises(NotImplementedError, match="resilience/"):
-            orch.simulate_async(cfg, trl, _task(), "a3po", 1, device="cpu",
-                                **kw)
+    o = orch.AsyncOrchestrator(cfg, trl, _task(),
+                               resilience=ResilienceConfig())
+    assert o.guard is None and not o.trainer.skip_nonfinite
+    runs = [orch.simulate_async(cfg, trl, _task(), "a3po", 2, device="cpu",
+                                n_prompts=2, max_new_tokens=3, **kw)[1]
+            for kw in ({}, {"resilience": ResilienceConfig()})]
+    for a, b in zip(*runs):
+        assert [getattr(a, k) for k in RECORD_METRICS] \
+            == [getattr(b, k) for k in RECORD_METRICS]
+        assert a.resilience is None and isinstance(b.resilience, dict)
 
 
 # ------------------------------------------------------------------ launcher
@@ -425,6 +436,7 @@ def test_launcher_cpu_run_log_matches_jax_schema(tmp_path):
     assert all(set(r) == jax_keys for r in steps)
     assert [r["staleness_mean"] for r in steps] == [0.0, 1.0]
     assert validate_jsonl(str(path), min_steps=2) == []
+    assert port_validate.validate_jsonl(str(path), min_steps=2) == []
     names = {e.get("name") for e in json.loads(trace.read_text())[
         "traceEvents"]}
     assert {"rollout_generate", "train_update", "weight_publish"} <= names
@@ -439,12 +451,10 @@ def test_launcher_algo_list(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--engine", "async", "--fault", "rollout_crash@1"], "resilience/"),
+    (["--engine", "async", "--resume", "auto"],
+     "--resume requires --ckpt-dir"),
     (["--mesh", "prod"], "Distribution and launch"),
-    (["--ckpt-dir", "ckpts"], "resilience/"),
-    (["--fault", "rollout_crash@1"], "resilience/"),
-    (["--guard", "skip"], "resilience/"),
-    (["--resume", "auto"], "resilience/"),
+    (["--resume", "auto"], "--resume requires --ckpt-dir"),
     (["--arch", "qwen2.5-1.5b"], "full-scale"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, match):

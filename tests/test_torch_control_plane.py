@@ -60,6 +60,7 @@ from repro_torch.data.tasks import ArithmeticTask
 from repro_torch.launch import train as launcher
 from repro_torch.models import model as tmodel
 from repro_torch.models.params import from_jax, walk
+from repro_torch.obs import validate as port_validate
 from repro_torch.rollout.continuous import ContinuousBatchingEngine, Request
 from repro_torch.rollout.paged_cache import BlockAllocator
 from repro_torch.serving import (
@@ -666,11 +667,22 @@ def test_serving_snapshot_has_the_reference_keys():
 
 
 def test_faults_refuse(toy):
+    """``faults=`` is taken now (it was refused until the fault-tolerance
+    runtime was ported; ``tests/test_torch_resilience.py`` holds its hooks
+    against JAX's); what a fault plan refuses is an unknown kind."""
+    from repro_torch.resilience import FaultPlan
     _, side = toy
-    eng = _engine(side)
-    with pytest.raises(NotImplementedError, match="resilience/"):
-        ServingControlPlane(eng, WeightStore(side.params, 0),
-                            faults=object())
+    plan = FaultPlan.from_strings(["kv_exhaust@0:2"])
+    cp = ServingControlPlane(_engine(side), WeightStore(side.params, 0),
+                             faults=plan)
+    free = cp.engine.allocator.n_free
+    cp.step()
+    assert cp.faults is plan and len(cp._kv_holds) == 2
+    assert cp.engine.allocator.n_free == free - 2
+    cp.step()  # the spec stops firing: the blocks go back
+    assert cp._kv_holds == [] and cp.engine.allocator.n_free == free
+    with pytest.raises(ValueError, match="unknown fault kind"):
+        FaultPlan.from_strings(["disk_full@0"])
 
 
 # ---------------------------------------------------------- prefill lane
@@ -914,6 +926,7 @@ def test_launcher_engine_async_run_log_matches_jax_schema(tmp_path):
     assert len(steps) == 2 and all(set(r) == jax_keys for r in steps)
     assert all(r["host_syncs"] == 1.0 for r in steps)
     assert validate_jsonl(str(path), min_steps=2) == []
+    assert port_validate.validate_jsonl(str(path), min_steps=2) == []
 
 
 # ----------------------------------------------------------------- on a card
