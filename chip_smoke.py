@@ -206,7 +206,31 @@ Phases, each printing one JSON line:
              and timed on their last call; a replay with --fault
              kv_exhaust; fit_cost_model on the card, its coefficients
              beside the card's name and power limit.
-16. the kernels line (all ten kernels, each with the shape its ms and
+16. MoE, MLA and the frontend stacks — (a) qwen3-moe-30b-a3b at full
+             width and depth (bf16, 61 GB, FFN weights x8) through the
+             dense RolloutEngine: 8 right-padded prompts of up to 256
+             tokens, 16 greedy new tokens; flash once per layer, dense
+             decode once per layer per token, each held against its plain
+             version on its last call and timed there; the share of
+             dropped routed pairs per layer at prefill, tokens/s, peak
+             memory, busy time and idle share. (b) `python -m
+             repro_torch.launch.serve --arch deepseek-v2-lite-16b`: the
+             full config in float32 (64.8 GB), two waves, exit 0 and each
+             wave's tokens/s; one MLA layer in float32, the absorbed
+             decode against the whole-sequence path. (c) qwen3-moe and
+             deepseek-v2-lite at full width, 2 layers, bf16: 4 prompts x
+             a group of 4 sampled through RolloutEngine, then Trainer.step
+             (A-3PO at staleness 1, recompute after it): metrics finite,
+             parameters moved, MoE aux above 0, the logprob and A-3PO
+             kernels launched, held against their plain versions on
+             their last call and timed there. (d) llava-next-mistral-7b
+             (2880 image-patch rows) and musicgen-large (512 audio-frame
+             rows) at full size in bf16, layer weights x8: forward_logits,
+             then prefill +
+             decode_step, the decode logits against forward_logits' last
+             position; flash (S = prefix + 63; hd 64, G 1 for musicgen)
+             and decode held and timed on their last call.
+17. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
@@ -215,7 +239,8 @@ Phases, each printing one JSON line:
              launches on its two paths; every kernel's launches on each
              path of phases 14 and 15, each path driven with the counts
              at 0; the paged kernels' times at phase 14 (c)'s and 15's
-             shapes), then the contract line (last):
+             shapes, and rows 3-6's launches and times on phase 16's
+             paths), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -1170,11 +1195,13 @@ def _reference_checks(torch, M, cfg, params, reqs, gap_tol, logp_tol):
     return summary
 
 
-def _scale_blocks(torch, params, factor):
-    """Scale the layer weights (not the norms) in place."""
+def _scale_blocks(torch, params, factor, only=None):
+    """Scale the layer weights (not the norms) in place; with ``only``,
+    just the blocks' parts it names (e.g. ``("ffn",)``)."""
     from repro_torch.models.params import walk
     for path, t in walk(params["blocks"]):
-        if path[0] not in ("ln1", "ln2"):
+        if path[0] not in ("ln1", "ln2") and (only is None
+                                              or path[0] in only):
             t.mul_(factor)
 
 
@@ -2085,8 +2112,10 @@ def _a3po_loss_device_kernels(torch):
     backward). The reduced path must launch each reduced kernel once and
     at most 16 in all. A profiler session after the first in a process
     can miss the first device events it should see (8 of them in one run
-    on an NVIDIA H100), so each session first launches 16 empty kernels
-    and counts only what starts after the last marker it saw."""
+    on an NVIDIA H100, all 16 markers in another), so each session first
+    launches 16 empty kernels and counts only what starts after the last
+    marker it saw; a session that saw no marker is taken again (at most
+    three sessions), since what it saw after them cannot be told apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2118,30 +2147,39 @@ def _a3po_loss_device_kernels(torch):
         _parent_a3po_loss(torch, x, batch.behav_logp, alpha,
                           batch.advantages, batch.mask, rl, e)[0].backward()
 
-    out = {}
-    for label, fn in (("reduced", reduced), ("parent", parent)):
-        for profiled in (False, True):  # a warm-up call, then the count
-            x = lp.clone().requires_grad_(True)
-            e = ent.clone().requires_grad_(True)
+    def session(fn):
+        """One profiled call of ``fn`` behind the markers: (device events
+        in start order, the indices of the markers among them)."""
+        x = lp.clone().requires_grad_(True)
+        e = ent.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(markers):
+                akernel.empty_launch_fn()(stream)
             torch.cuda.synchronize()
-            if not profiled:
-                fn(x, e)
-                continue
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(markers):
-                    akernel.empty_launch_fn()(stream)
-                torch.cuda.synchronize()
-                fn(x, e)
-                torch.cuda.synchronize()
+            fn(x, e)
+            torch.cuda.synchronize()
         evs = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
-        seen = [i for i, ev in enumerate(evs) if "empty_kernel" in ev.name]
+        return evs, [i for i, ev in enumerate(evs)
+                     if "empty_kernel" in ev.name]
+
+    out = {}
+    for label, fn in (("reduced", reduced), ("parent", parent)):
+        # a warm-up call, then the count
+        fn(lp.clone().requires_grad_(True), ent.clone().requires_grad_(True))
+        for sessions in range(1, 4):
+            evs, seen = session(fn)
+            if seen:
+                break
         if not seen:
-            raise AssertionError(f"the profiler saw no marker of {markers}")
+            raise AssertionError(f"the profiler saw no marker of {markers} "
+                                 f"in {sessions} sessions")
         evs = evs[seen[-1] + 1:]
-        out[label] = {"markers_seen": len(seen), "kernels": len(evs),
+        out[label] = {"sessions": sessions,
+                      "markers_seen": len(seen), "kernels": len(evs),
                       "device_us": sum(ev.time_range.end
                                        - ev.time_range.start for ev in evs),
                       "names": sorted(ev.name[:60] for ev in evs)}
@@ -2307,17 +2345,10 @@ def _capture_path(torch):
     (args, kwargs)} with ``"rollouts"``: [(params, version, RolloutBatch)]
     and ``"trees"``: {version: a copy of its parameters when a rollout
     first used them}."""
-    from repro_torch.core import objective
-    from repro_torch.models import attention
     from repro_torch.rollout.engine import RolloutEngine
-    from repro_torch.training import trainer
     from repro_torch.training.optimizer import flatten
-    sites = {"flash_attention": (attention, "flash_attention"),
-             "decode_attention": (attention, "decode_attention_op"),
-             "token_logprob_entropy": (trainer, "token_logprob_entropy"),
-             "a3po_loss": (objective, "a3po_objective_reduced")}
     plain = RolloutEngine.generate
-    with _capture_ops(torch, sites) as seen:
+    with _capture_ops(torch, _dense_sites(train=True)) as seen:
         seen.update(rollouts=[], trees={})
 
         def generate(self, params, *args, **kw):
@@ -2352,11 +2383,32 @@ def _logprob_top_tile_dropped(torch, h, w, t, tile=128):
     return logp, logz - (p * logits).sum(-1)
 
 
-def _hold_path_kernels(torch, seen):
+def _dense_top_key_dropped(torch, q, kc, vc, lengths):
+    """The plain dense decode (float32) with, in each row of more than one
+    key, the key that scores highest over the row's heads left out. At the
+    init stds a row of ~3000 keys attends so flatly that a reference one
+    key short at its end stays within the tolerance; leaving out the key
+    that matters most does not."""
+    from repro_torch.models.attention import decode_attention
+    B, H, hd = q.shape
+    L, KV = kc.shape[1], kc.shape[2]
+    k, v = kc.float(), vc.float()
+    keys = torch.arange(L, device=q.device)[None, :]
+    valid = keys < lengths[:, None]
+    score = torch.einsum("bkgd,blkd->bkgl", q.float().reshape(B, KV, -1, hd),
+                         k).amax((1, 2))
+    top = score.masked_fill(~valid, -torch.inf).argmax(-1)
+    drop = (keys == top[:, None]) & (lengths[:, None] > 1)
+    return decode_attention(q.float(), k, v, valid & ~drop)
+
+
+def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one"):
     """Each kernel op the path called, held against its plain version on
     the inputs of its last call there (bf16 attention and logprob inputs
     against float32 plain versions, the A-3PO loss in float32), with the
-    wrong references of the kernel phases. Returns the records."""
+    wrong references of the kernel phases (dense decode's: ``lengths -
+    1``, or with ``decode_wrong="top_key_dropped"``
+    ``_dense_top_key_dropped``). Returns the records."""
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn import ops as fops
@@ -2386,10 +2438,12 @@ def _hold_path_kernels(torch, seen):
             rec = {"name": "decode_attention", "shape": list(q.shape),
                    "cache": list(kc.shape),
                    "lengths": [int(lengths.min()), int(lengths.max())]}
+            wrong = (_dense_top_key_dropped(torch, q, kc, vc, lengths)
+                     if decode_wrong == "top_key_dropped" else
+                     decode_attention_ref(q32, k32, v32, lengths - 1))
             _hold(torch, rec, out, decode_attention_ref(q32, k32, v32,
                                                         lengths), tol,
-                  {"lengths_minus_one": decode_attention_ref(
-                      q32, k32, v32, lengths - 1)})
+                  {decode_wrong: wrong})
         recs["decode_attention"] = rec
     if "token_logprob_entropy" in seen:
         (h, w, t), _ = seen["token_logprob_entropy"]
@@ -4071,6 +4125,582 @@ def phase_ssm_serving(torch, name):
     return launches
 
 
+# -------------------------------------------- MoE, MLA and the frontends
+MOE_PROMPTS = 8
+MOE_PROMPT_PAD = 256
+MOE_MAX_NEW = 16
+# The MoE stacks scale their FFN (router and experts) x8 and keep the
+# attention at its init std: with qwen3-moe's attention x8 (or x2, x4)
+# the sharp scores make every greedy request repeat one token (1-4
+# distinct tokens in 16, measured on the H100 over the 8 prompts), with
+# it at x1 and the FFN at x8, 1-13 (mean 5.75). The untied heads keep the
+# logps near -8 at any of these scales.
+MOE_SCALE_PARTS = ("ffn",)
+# training on the MoE stacks: full width, depth cut to 2 layers, 4
+# prompts x a group of 4 sampled completions. At 4 layers (qwen3-moe 3.11
+# B parameters: bf16 weights 6.2 GB, gradients 6.2 GB, Adam's float32
+# moments 24.9 GB, the updated weights 6.2 GB) the eager Adam's float32
+# temporaries of one expert stack ([4, 128, 2048, 768], 3.2 GB each, ~7
+# live) took the card past 80 GB (measured: out of memory in
+# optimizer._leaf at 69.8 GB allocated). At 2 layers: 1.87 B parameters.
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_PROMPT_PAD = 256
+MOE_TRAIN_MAX_NEW = 32
+# MLA at one layer of deepseek-v2-lite in float32: the absorbed decode
+# and the expanded whole-sequence path sum the same products in another
+# order (over the 512-wide latent instead of 128-wide heads)
+MLA_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# the frontend stacks: B 2, 64 text tokens after the prefix (2880 image
+# patches for llava, 512 audio frames for musicgen)
+FRONTEND_B = 2
+FRONTEND_TEXT = 64
+SERVE_LAUNCHER = ("--arch", "deepseek-v2-lite-16b", "--device", "cuda")
+DENSE_ROLLOUT_PATH = ("flash_attention", "decode_attention")
+
+
+@contextlib.contextmanager
+def _drop_shares(torch):
+    """Record, for every ``moe_apply`` call over more than one position (a
+    prefill's), the share of its routed (token, expert) pairs that the
+    capacity dispatch drops, as device scalars (read after the run)."""
+    from repro_torch.models import moe
+    shares = []
+    plain = moe.moe_apply
+
+    def apply(params, x, cfg):
+        if x.shape[1] > 1:
+            m = cfg.moe
+            T = x.shape[0] * x.shape[1]
+            C = moe.capacity(m, T)
+            top_i = moe.route(params["router"], x.reshape(T, -1), m)[2]
+            _, slot = moe.dispatch_slots(top_i, m, C)
+            shares.append((slot == m.num_experts * C).float().mean())
+        return plain(params, x, cfg)
+
+    moe.moe_apply = apply
+    try:
+        yield shares
+    finally:
+        moe.moe_apply = plain
+
+
+def _dense_sites(train=False):
+    """``_capture_ops`` sites of the rollout's two attention kernel ops
+    and, with ``train``, the training step's logprob and A-3PO ops."""
+    from repro_torch.core import objective
+    from repro_torch.models import attention
+    from repro_torch.training import trainer
+    sites = {"flash_attention": (attention, "flash_attention"),
+             "decode_attention": (attention, "decode_attention_op")}
+    if train:
+        sites.update(
+            token_logprob_entropy=(trainer, "token_logprob_entropy"),
+            a3po_loss=(objective, "a3po_objective_reduced"))
+    return sites
+
+
+def _time_path_kernels(torch, seen, label):
+    """Each kernel op a path called, timed on the inputs of its last call
+    there (CUDA events, L2 flushed) beside its plain version, one PyTorch
+    call that computes the same function where there is one (SDPA, the
+    head's product), and the bound for those inputs. Returns {kernel name:
+    record}, the records also printed."""
+    from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.a3po_loss.ref import (
+        a3po_reduced_bwd_ref,
+        a3po_reduced_ref,
+    )
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.logprob import ops as lops
+    from repro_torch.kernels.logprob.ref import (
+        token_logprob_entropy_bwd_ref,
+        token_logprob_entropy_ref,
+    )
+    F = torch.nn.functional
+    timer = Timer(torch)
+    out = {}
+
+    def record(name, dname, shape, times):
+        rec = dict({"phase": "kernel", "name": name, "case": label,
+                    "dtype": dname, "shape": shape}, **times)
+        emit(rec)
+        out[name] = rec
+
+    with torch.no_grad():
+        if "flash_attention" in seen:
+            (q, k, v), kw = seen["flash_attention"]
+            B, H, S, hd = q.shape
+            KV = k.shape[1]
+            dname = str(q.dtype).split(".")[-1]
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            record("flash_attention", dname,
+                   {"B": B, "S": S, "H": H, "KV": KV, "hd": hd}, _times(
+                       torch, timer, dname,
+                       q.element_size() * (2 * q.numel() + k.numel()
+                                           + v.numel()),
+                       4 * B * H * hd * _flash_pairs(S, kw.get("window")),
+                       lambda: fops.flash_attention(q, k, v, **kw),
+                       lambda: flash_attention_ref(q, k, v, **kw),
+                       lambda: F.scaled_dot_product_attention(
+                           qc, kc, vc, is_causal=True, enable_gqa=True),
+                       iters=10, plain_iters=3))
+            del qc, kc, vc
+        if "decode_attention" in seen:
+            (q, kc, vc, lengths), _ = seen["decode_attention"]
+            B, H, hd = q.shape
+            L, KV = kc.shape[1], kc.shape[2]
+            n_keys = int(lengths.sum())
+            dname = str(q.dtype).split(".")[-1]
+            kt = kc.transpose(1, 2).contiguous()
+            vt = vc.transpose(1, 2).contiguous()
+            mask = (torch.arange(L, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            record("decode_attention", dname,
+                   {"B": B, "H": H, "KV": KV, "hd": hd, "L": L,
+                    "keys": n_keys}, _times(
+                       torch, timer, dname,
+                       q.element_size() * (2 * q.numel()
+                                           + 2 * n_keys * KV * hd) + 4 * B,
+                       4 * H * hd * n_keys,
+                       lambda: dops.decode_attention_op(q, kc, vc, lengths),
+                       lambda: decode_attention_ref(q, kc, vc, lengths),
+                       lambda: F.scaled_dot_product_attention(
+                           q[:, :, None], kt, vt, attn_mask=mask,
+                           enable_gqa=True), iters=50))
+            del kt, vt
+        if "token_logprob_entropy" in seen:
+            (h, w, t), _ = seen["token_logprob_entropy"]
+            h, t = h.reshape(-1, h.shape[-1]), t.reshape(-1)
+            T, d = h.shape
+            V = w.shape[1]
+            dname = str(h.dtype).split(".")[-1]
+            es = h.element_size()
+            shape = {"T": T, "d": d, "V": V}
+            lib = (lambda: torch.mm(h, w, out_dtype=torch.float32)) \
+                if h.dtype == torch.bfloat16 else (lambda: h @ w)
+            record("token_logprob_entropy", dname, shape, _times(
+                torch, timer, dname, T * d * es + d * V * es + T * 4
+                + 4 * T * 4, 2 * T * d * V,
+                lambda: lops.token_logprob_entropy(h, w, t),
+                lambda: token_logprob_entropy_ref(h.float(), w.float(), t),
+                lib, iters=10, plain_iters=3))
+            t32 = t.to(torch.int32)
+            _, _, logz, mu = lops._forward_kernel(h, w, t32)
+            g = torch.Generator(device="cuda").manual_seed(12)
+            gl, ge = torch.randn(2, T, generator=g, device="cuda")
+            record("token_logprob_entropy_bwd", dname, shape, _times(
+                torch, timer, dname, 2 * (T * d * es + d * V * es)
+                + T * 4 * 5, 3 * 2 * T * d * V,
+                lambda: lops._backward_kernel(h, w, t32, logz, mu, gl, ge,
+                                              True, True),
+                lambda: token_logprob_entropy_bwd_ref(h, w, t32, logz, mu,
+                                                      gl, ge),
+                None, iters=5, plain_iters=2))
+        if "a3po_loss" in seen:
+            args, kw = seen["a3po_loss"]
+            args = [None if a is None else a.reshape(-1).contiguous()
+                    for a in args]
+            kw = {k: v for k, v in kw.items() if k != "use_kernel"}
+            T = args[0].numel()
+            ent = args[5] is not None
+            _, metrics, coef = aops._reduced_forward_kernel(*args, **kw)
+            gs = torch.randn((), device="cuda") * 2
+            bkw = dict(kl_coef=kw["kl_coef"], entropy_coef=kw["entropy_coef"],
+                       with_entropy=ent)
+            shape = {"T": T, "entropy": ent}
+            record("a3po_loss", "float32", shape, _times(
+                torch, timer, "float32", (24 + 4 * ent) * T + 4 * 10,
+                A3PO_FWD_OPS * T,
+                lambda: aops._reduced_forward_kernel(*args, **kw),
+                lambda: a3po_reduced_ref(*args, **kw), None))
+            record("a3po_loss_bwd", "float32", shape, _times(
+                torch, timer, "float32", 8 * T + 4 * 2, A3PO_BWD_OPS * T,
+                lambda: aops._reduced_backward_kernel(
+                    gs.reshape(1), metrics, coef, args[4], **bkw),
+                lambda: a3po_reduced_bwd_ref(gs, metrics[aops.DENOM], coef,
+                                             args[4], **bkw), None))
+    del timer
+    return out
+
+
+def _ragged_prompts(cfg, n, pad, seed):
+    """n seeded prompts of 64 .. pad tokens, right-padded to pad."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(64, pad + 1, size=n).astype(np.int32)
+    lengths[0] = pad
+    prompts = np.zeros((n, pad), np.int32)
+    for i, L in enumerate(lengths):
+        prompts[i, :L] = rng.integers(4, cfg.vocab_size, size=L)
+    return prompts, lengths
+
+
+def _check_generated(np, rb, label):
+    """Finite behaviour logps, every row generating, and not one token
+    repeated: the floors of the reference checks."""
+    n = rb.gen_mask.sum(axis=1).astype(int)
+    gen = [rb.tokens[b, L: L + n[b]] for b, L in enumerate(
+        np.asarray(rb.prompt_lengths))]
+    out = {"generated_tokens": int(n.sum()),
+           "distinct_per_request": float(np.mean(
+               [len(set(g.tolist())) for g in gen])),
+           "mean_logp": float((rb.gen_logp * rb.gen_mask).sum()
+                              / max(n.sum(), 1))}
+    if not np.all(np.isfinite(rb.gen_logp)) or n.min() == 0 \
+            or out["distinct_per_request"] < MIN_DISTINCT_PER_REQUEST \
+            or out["mean_logp"] > MAX_MEAN_LOGP:
+        raise AssertionError(f"{label}: degenerate generation {out}")
+    return out
+
+
+def phase_moe_serving(torch):
+    """(a) qwen3-moe-30b-a3b at full width and depth in bf16 (30.5 B
+    parameters, 61 GB; FFN weights x8) through the dense RolloutEngine:
+    8 right-padded prompts of up to 256 tokens, 16 greedy new tokens. The
+    flash kernel runs once per layer for the prefill and dense decode once
+    per layer per token, each held against its plain version on its last
+    call and timed there; the share of dropped routed pairs per layer at
+    a prefill of the same prompts, tokens/s, peak memory, and the device's
+    busy time and idle share of one more call. Returns (launches,
+    times)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.rollout.engine import RolloutEngine
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    _scale_blocks(torch, params, SCALE, MOE_SCALE_PARTS)
+    prompts, lengths = _ragged_prompts(cfg, MOE_PROMPTS, MOE_PROMPT_PAD, 20)
+    engine = RolloutEngine(cfg, max_new_tokens=MOE_MAX_NEW)
+    engine.generate(params, prompts[:2], lengths[:2], greedy=True)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rb = engine.generate(params, prompts, lengths, greedy=True)
+    elapsed = time.perf_counter() - t0
+    launches = _path_counts(DENSE_ROLLOUT_PATH)
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * MOE_MAX_NEW}
+    if launches != want:
+        raise AssertionError(f"moe rollout launches {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gen = _check_generated(np, rb, "qwen3-moe rollout")
+    # the same call again with each kernel op's inputs recorded
+    with _capture_ops(torch, _dense_sites()) as seen:
+        engine.generate(params, prompts, lengths, greedy=True)
+    held = _hold_path_kernels(torch, seen, "top_key_dropped")
+    with _drop_shares(torch) as shares:
+        M.prefill(params, cfg, torch.as_tensor(prompts, dtype=torch.long,
+                                               device="cuda"),
+                  lengths=torch.as_tensor(lengths, device="cuda"))
+        shares = [float(s) for s in shares]
+    if len(shares) != cfg.num_layers:
+        raise AssertionError(f"{len(shares)} MoE prefill calls")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(params, prompts, lengths, greedy=True)
+        return time.perf_counter() - t0
+    prof = _device_profile(torch, run)
+    times = _time_path_kernels(torch, seen, "moe_rollout")
+    emit({"phase": "moe_serving", "model": cfg.name,
+          "layers": cfg.num_layers, "params": cfg.num_params(),
+          "dtype": "bfloat16", "weight_scale": {"x": SCALE,
+                                                "parts": MOE_SCALE_PARTS},
+          "init_s": init_s, "init_peak_mem_gb": init_peak,
+          "batch": list(prompts.shape), "prompt_tokens": int(lengths.sum()),
+          "max_new": MOE_MAX_NEW, "capacity_factor": cfg.moe.capacity_factor,
+          "elapsed_s": elapsed, "tokens_per_s": gen["generated_tokens"]
+          / elapsed, "peak_mem_gb": peak, "launches": launches,
+          "prefill_dropped_pair_share_by_layer": shares,
+          "prefill_dropped_pair_share_mean": sum(shares) / len(shares),
+          "generated": gen, "held": held,
+          "device_busy_s": prof["device_busy_s"],
+          "device_idle_share": prof["device_idle_share"],
+          "top_device_kernels": prof["top_device_kernels"][:6]})
+    del params, engine, seen
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def _mla_absorbed_check(torch):
+    """One deepseek-v2-lite MLA layer at full width in float32: the
+    absorbed mla_decode of token S, against a latent cache that mla_full
+    filled with tokens 0 .. S-1, equals mla_full's position S over tokens
+    0 .. S (two rows, S 255 and 100)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mla
+    from repro_torch.models.params import init_from_specs
+    cfg = get_config("deepseek-v2-lite-16b")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    p = init_from_specs(mla.mla_spec(cfg), g, device="cuda",
+                        dtype=torch.float32)
+    S = 256
+    x = torch.randn(2, S, cfg.d_model, generator=g, device="cuda")
+    lengths = torch.tensor([S - 1, 100], dtype=torch.int32, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(2, S)
+    with torch.no_grad():
+        full, _ = mla.mla_full(p, x, cfg, pos)
+        _, (ckv, krope) = mla.mla_full(p, x[:, : S - 1], cfg, pos[:, :-1])
+        cache = mla.init_mla_cache(cfg, 2, S + 8, dtype=torch.float32)
+        cache["ckv"][:, : S - 1] = ckv
+        cache["krope"][:, : S - 1] = krope
+        rows = torch.arange(2, device="cuda")
+        dec, _ = mla.mla_decode(p, x[rows, lengths.long()], cfg, cache,
+                                lengths)
+        ref = full[rows, lengths.long()]
+    rec = {"name": "mla_decode_vs_full", "layer_params": sum(
+        t.numel() for t in p.parameters()), "S": S,
+        "lengths": lengths.tolist()}
+    # the tolerance must fail the output of the position before
+    _hold(torch, rec, dec, ref, MLA_TOL,
+          {"previous_position": full[rows, lengths.long() - 1]})
+    return rec
+
+
+def phase_serve_launcher(torch):
+    """(b) ``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    --device cuda``: the full config in float32 (16.2 B parameters, 64.8
+    GB, as the reference casts it) through the dense RolloutEngine, two
+    waves of 8 sampled sequences x 8 new tokens: exit 0, each wave's
+    tokens/s. MLA and MoE are plain PyTorch: no kernel launches here. Then
+    the absorbed MLA decode against the whole-sequence path at one layer."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_LAUNCHER],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    waves = [line for line in res.stdout.splitlines()
+             if line.startswith("wave ")]
+    rates = [float(re.search(r"([0-9.]+) tok/s$", w).group(1))
+             for w in waves]
+    rec = {"phase": "serve_launcher", "argv": list(SERVE_LAUNCHER),
+           "returncode": res.returncode, "wall_s": wall, "waves": waves,
+           "tokens_per_s": rates}
+    if res.returncode != 0 or len(rates) != 2:
+        raise AssertionError(f"serve launcher: {rec}\n{res.stderr[-4000:]}")
+    rec["mla"] = _mla_absorbed_check(torch)
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
+def phase_moe_training(torch, name):
+    """(c) ``name`` at full width with the depth cut to 2 layers, bf16,
+    FFN weights x8: 4 prompts x a group of 4 sampled completions through
+    the dense RolloutEngine (version 0), then Trainer.step with A-3PO at
+    staleness 1 and a recompute step after it (staleness 2), on seeded
+    Bernoulli rewards: every metric finite, the parameters move, the MoE
+    aux finite
+    and above 0; the logprob forward and backward and the A-3PO loss
+    kernels launched and held against their plain versions on their last
+    call, and timed there. Returns (launches, times)."""
+    import numpy as np
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.rollout.engine import RolloutEngine
+    from repro_torch.training import (
+        Trainer,
+        TrainState,
+        adam_init,
+        assemble_train_batch,
+    )
+    from repro_torch.training.trainer import METRIC_KEYS
+
+    cfg = dataclasses.replace(get_config(name), num_layers=MOE_TRAIN_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_blocks(torch, params, SCALE, MOE_SCALE_PARTS)
+    rng = np.random.default_rng(14)
+    prompts, lengths = _ragged_prompts(cfg, TRAIN_PROMPTS,
+                                       MOE_TRAIN_PROMPT_PAD, 15)
+    prompts = np.repeat(prompts, GROUP, axis=0)
+    lengths = np.repeat(lengths, GROUP)
+    engine = RolloutEngine(cfg, RLConfig(temperature=1.0, top_p=1.0),
+                           max_new_tokens=MOE_TRAIN_MAX_NEW)
+    rl = RLConfig(group_size=GROUP, num_minibatches=4)
+    trainers = {a: Trainer(cfg, rl, a) for a in ("a3po", "recompute")}
+    state = TrainState(params, adam_init(params),
+                       torch.ones((), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with _capture_ops(torch, _dense_sites(train=True)) as seen:
+        t0 = time.perf_counter()
+        rb = engine.generate(params, prompts, lengths,
+                             torch.Generator(device="cuda").manual_seed(16),
+                             version=0)
+        serve_s = time.perf_counter() - t0
+        gen = _check_generated(np, rb, f"{name} rollout")
+        batch = assemble_train_batch(
+            [rb], rng.binomial(1, 0.5, len(lengths)).astype(np.float32),
+            device="cuda")
+        for algo in ("a3po", "recompute"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = trainers[algo].step(state, batch)
+            torch.cuda.synchronize()
+            _check_metrics(np, m, METRIC_KEYS)
+            changed, total = _changed(torch, state.params, new.params)
+            rec = {"algo": algo, "seconds": time.perf_counter() - t0,
+                   "staleness": m["staleness_mean"],
+                   "params_changed": changed, "params_total": total,
+                   "host_syncs": trainers[algo].last_host_syncs,
+                   "metrics": {k: m[k] for k in METRIC_KEYS}}
+            # the a3po step at staleness 1 (alpha 1: iw exactly 1), the
+            # recompute step after it at 2
+            if changed == 0 or m["staleness_mean"] != len(steps) + 1 \
+                    or (algo == "a3po" and m["iw_mean"] != 1.0):
+                raise AssertionError(f"{name} {algo} step: {rec}")
+            steps.append(rec)
+            state = new
+    launches = _path_counts(TRAIN_PATH)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    train_kernels = ("a3po_loss", "a3po_loss_bwd", "token_logprob_entropy",
+                     "token_logprob_entropy_bwd")
+    if min(launches[k] for k in train_kernels) <= 0 \
+            or (cfg.mla is None) != (launches["flash_attention"] > 0):
+        raise AssertionError(f"{name} training launches {launches}")
+    with torch.no_grad():
+        _, aux = M.forward_hidden(state.params, cfg, batch.tokens[:4, :-1])
+    aux = float(aux)
+    if not (math.isfinite(aux) and aux > 0):
+        raise AssertionError(f"{name}: MoE aux {aux}")
+    held = _hold_path_kernels(torch, seen, "top_key_dropped")
+    times = _time_path_kernels(torch, seen, f"moe_train_{name}")
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainers["a3po"].step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    prof = _device_profile(torch, step)
+    emit({"phase": "moe_training", "model": name, "layers": cfg.num_layers,
+          "params": cfg.num_params(), "dtype": "bfloat16",
+          "weight_scale": {"x": SCALE, "parts": MOE_SCALE_PARTS},
+          "batch": list(batch.tokens.shape),
+          "serve_s": serve_s, "generated": gen, "steps": steps,
+          "moe_aux": aux, "peak_mem_gb": peak, "launches": launches,
+          "held": held, "a3po_step_profile": {
+              k: prof[k] for k in ("wall_s", "device_busy_s",
+                                   "device_idle_share",
+                                   "top_device_kernels")}})
+    del params, state, new, seen, engine
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_frontend(torch, name):
+    """(d) ``name`` (llava-next-mistral-7b: 2880 image-patch rows;
+    musicgen-large: 512 audio-frame rows) at full size in bf16, layer
+    weights x8 (at the init stds a row of ~3000 keys attends so flatly
+    that no one key moves the output past the kernel tolerance, so no
+    wrong reference could fail it), seeded random frontend embeddings:
+    forward_logits over the
+    prefix and 64 text tokens, then prefill of all but the last token
+    (flash at S = prefix + 63) and one decode_step (dense decode over the
+    prefix + 63 keys): the decode logits agree with forward_logits' last
+    position within the engine checks' bf16 tolerances, flash and decode
+    held against their plain versions on their last call and timed there.
+    Returns (launches, times)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    F = cfg.frontend_tokens
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           device="cuda", dtype=torch.bfloat16)
+    _scale_blocks(torch, params, SCALE)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    toks = torch.randint(4, cfg.vocab_size, (FRONTEND_B, FRONTEND_TEXT),
+                         generator=g, device="cuda")
+    embeds = torch.randn(FRONTEND_B, F, cfg.d_model, generator=g,
+                         device="cuda").to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        full = M.forward_logits(params, cfg, toks, embeds=embeds)[:, -1]
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        _reset_counts()
+        with _capture_ops(torch, _dense_sites()) as seen:
+            t0 = time.perf_counter()
+            _, cache = M.prefill(params, cfg, toks[:, :-1], embeds=embeds,
+                                 max_len=F + FRONTEND_TEXT + 8)
+            dec, cache = M.decode_step(params, cfg, cache, toks[:, -1])
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        launches = _path_counts(DENSE_ROLLOUT_PATH)
+    if launches != {"flash_attention": cfg.num_layers,
+                    "decode_attention": cfg.num_layers}:
+        raise AssertionError(f"{name} launches {launches}")
+    lp_full = torch.log_softmax(full, dim=-1)
+    lp_dec = torch.log_softmax(dec, dim=-1)
+    best = lp_dec.argmax(dim=-1, keepdim=True)
+    top = lp_full.argmax(dim=-1, keepdim=True)
+    check = {
+        "lengths": cache["lengths"].tolist(),
+        "max_abs_logp_err_at_argmaxes": max(
+            (lp_full.gather(-1, i) - lp_dec.gather(-1, i)).abs().max().item()
+            for i in (best, top)),
+        "max_gap_to_best_logp": (lp_full.max(dim=-1).values
+                                 - lp_full.gather(-1, best)[:, 0]).max()
+        .item(),
+        "argmax_agree": int((best == top).sum()),
+        "best_logp": lp_full.max(dim=-1).values.tolist(),
+        "tol": {"logp": ENGINE_LOGP_TOL, "gap": ENGINE_GAP_TOL}}
+    if check["lengths"] != [F + FRONTEND_TEXT] * FRONTEND_B \
+            or check["max_abs_logp_err_at_argmaxes"] > ENGINE_LOGP_TOL \
+            or check["max_gap_to_best_logp"] > ENGINE_GAP_TOL \
+            or not bool(torch.isfinite(dec).all()) \
+            or max(check["best_logp"]) > MAX_MEAN_LOGP:
+        raise AssertionError(f"{name}: decode vs forward_logits {check}")
+    held = _hold_path_kernels(torch, seen, "top_key_dropped")
+    times = _time_path_kernels(torch, seen, f"frontend_{name}")
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, c = M.prefill(params, cfg, toks[:, :-1], embeds=embeds,
+                         max_len=F + FRONTEND_TEXT + 8)
+        M.decode_step(params, cfg, c, toks[:, -1])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    prof = _device_profile(torch, serve)
+    emit({"phase": "frontend", "model": name, "layers": cfg.num_layers,
+          "params": cfg.num_params(), "dtype": "bfloat16",
+          "layer_weight_scale": SCALE, "prefix_rows": F,
+          "text_tokens": FRONTEND_TEXT, "batch": FRONTEND_B,
+          "forward_s": forward_s, "prefill_decode_s": serve_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "decode_vs_forward": check, "held": held,
+          "prefill_decode_profile": {
+              k: prof[k] for k in ("wall_s", "device_busy_s",
+                                   "device_idle_share",
+                                   "top_device_kernels")}})
+    del params, cache, seen, full, dec
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4111,6 +4741,20 @@ def main() -> int:
         ssm = [phase_ssm_serving(torch, name) for name in SSM_SCALE]
     for k in ("ssd_decode_step", "ssd_intra_chunk"):
         launches[k] = sum(run[k] for run in ssm)
+    torch.cuda.empty_cache()
+    # the MoE, MLA and frontend stacks, each path driven with the counts
+    # set to 0 just before it
+    with torch.no_grad():
+        by_path["moe_rollout"], at_paths["moe_rollout"] = phase_moe_serving(
+            torch)
+    phase_serve_launcher(torch)
+    for name in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"):
+        by_path[f"moe_train_{name}"], at_paths[f"moe_train_{name}"] = \
+            phase_moe_training(torch, name)
+    with torch.no_grad():
+        for name in ("llava-next-mistral-7b", "musicgen-large"):
+            by_path[f"frontend_{name}"], at_paths[f"frontend_{name}"] = \
+                phase_frontend(torch, name)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),

@@ -61,22 +61,25 @@ def project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
 def chunked_causal_attention(
     q: torch.Tensor,             # [B, S, H, hd]
     k: torch.Tensor,             # [B, Skv, KV, hd]
-    v: torch.Tensor,             # [B, Skv, KV, hd]
+    v: torch.Tensor,             # [B, Skv, KV, dv]
     *,
     q_positions: torch.Tensor,   # [B, S]
     kv_positions: torch.Tensor,  # [B, Skv]
     kv_valid: Optional[torch.Tensor] = None,  # [B, Skv] bool
     window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
     q_chunk: int = 512,
 ) -> torch.Tensor:
     """Causal GQA attention in query chunks, so the [S, Skv] score matrix
     exists for one chunk at a time (with ``window``, query position i sees
     only keys with i - j < window). Scores in the input dtype, softmax in
-    float32, as the reference."""
+    float32, as the reference. The value width ``dv`` may differ from the
+    key width (MLA); the scale defaults to hd ** -0.5."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
+    dv = v.shape[-1]
     G = H // KV
-    scale = hd ** -0.5
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     out = []
     for c0 in range(0, S, q_chunk):
         q_i = q[:, c0: c0 + q_chunk].reshape(B, -1, KV, G, hd)
@@ -91,7 +94,7 @@ def chunked_causal_attention(
         s = torch.where(mask[:, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
-        out.append(o.reshape(B, -1, H, hd).to(q.dtype))
+        out.append(o.reshape(B, -1, H, dv).to(q.dtype))
     return torch.cat(out, dim=1)
 
 
@@ -115,6 +118,7 @@ class DecodeIndex(NamedTuple):
     n_valid: torch.Tensor    # [B] int32: keys attended, the new one included
     cos: torch.Tensor        # [B, 1, 1, hd/2] rope at position `lengths`
     sin: torch.Tensor
+    lengths: torch.Tensor    # [B] int32: tokens already cached (MLA reads it)
 
 
 def decode_index(cfg: ModelConfig, lengths: torch.Tensor, L: int,
@@ -133,7 +137,8 @@ def decode_index(cfg: ModelConfig, lengths: torch.Tensor, L: int,
     cos, sin = rope_cos_sin(lengths[:, None], cfg.resolved_head_dim,
                             cfg.rope_theta)
     return DecodeIndex(torch.arange(lengths.shape[0], device=lengths.device),
-                       write_idx.long(), n_valid.to(torch.int32), cos, sin)
+                       write_idx.long(), n_valid.to(torch.int32), cos, sin,
+                       lengths)
 
 
 def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,

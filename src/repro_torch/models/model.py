@@ -1,18 +1,21 @@
-"""Decoder LM over the dense, SSM (Mamba2) and hybrid (Zamba2) families
-(``repro.models.model``; no MoE, MLA or frontend stacks yet).
+"""Decoder LM over the assigned families: dense, MoE (with MLA), SSM
+(Mamba2), hybrid (Zamba2), and the vision and audio stacks, whose
+precomputed frontend embeddings are projected and prepended to the text
+(``repro.models.model``).
 
 Public entry points: ``model_spec`` / ``init_params``; the whole-sequence
-``forward_hidden`` / ``forward_logits`` (the training forward, and the
-reference the serving engines are checked against); and the dense-cache
-generation path of the rollout engine, ``init_cache`` / ``prefill`` /
-``decode_step``. Layers are a Python loop over the stack (the reference
-scans it), each stacked leaf unbound once per forward (``unstack_model``);
-a hybrid stack runs its SSM blocks in order with the one shared attention
-block after every ``attn_every - 1`` of them, as ``cfg.block_kinds()``
-lists them. With ``cfg.remat`` and gradients enabled each layer is
-recomputed in the backward (``torch.utils.checkpoint``), as the
-reference's remat does. The SSD kernels have no backward: SSM training is
-not ported, and a gradient through an SSM block on the card raises.
+``forward_hidden`` (hidden state and the MoE load-balance loss: the
+training forward) / ``forward_logits`` (the reference the serving engines
+are checked against); and the dense-cache generation path of the rollout
+engine, ``init_cache`` / ``prefill`` / ``decode_step``. Layers are a
+Python loop over the stack (the reference scans it), each stacked leaf
+unbound once per forward (``unstack_model``); a hybrid stack runs its SSM
+blocks in order with the one shared attention block after every
+``attn_every - 1`` of them, as ``cfg.block_kinds()`` lists them. With
+``cfg.remat`` and gradients enabled each layer is recomputed in the
+backward (``torch.utils.checkpoint``), as the reference's remat does. The
+SSD kernels have no backward: SSM training is not ported, and a gradient
+through an SSM block on the card raises.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import (
+    ParamSpec,
     ParamTree,
     SpecTree,
     init_from_specs,
@@ -57,15 +61,16 @@ def require_device(device) -> torch.device:
     return device
 
 
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_arch(cfg: ModelConfig) -> None:
-    """Raise for a stack the port cannot run: it takes dense, SSM and
-    hybrid stacks without MoE, MLA or a frontend."""
-    if cfg.arch_type not in ("dense", "ssm", "hybrid") \
-            or cfg.frontend is not None or cfg.moe is not None \
-            or cfg.mla is not None:
+    """Raise for a stack the port cannot run: an arch type outside the
+    reference's six families."""
+    if cfg.arch_type not in ARCH_TYPES:
         raise NotImplementedError(
-            f"{cfg.name}: only dense, SSM and hybrid stacks without MoE, "
-            "MLA or a frontend are ported")
+            f"{cfg.name}: arch type {cfg.arch_type!r} is not one of "
+            f"{ARCH_TYPES}")
 
 
 def layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -84,6 +89,11 @@ def model_spec(cfg: ModelConfig) -> SpecTree:
     check_arch(cfg)
     spec: SpecTree = {"embedding": embedding_spec(cfg),
                       "final_norm": rmsnorm_spec(cfg.d_model)}
+    if cfg.frontend is not None:
+        # the projector of the precomputed frontend embeddings
+        spec["frontend_proj"] = ParamSpec(
+            (cfg.d_model, cfg.d_model), ("embed", "act_embed"),
+            scale=cfg.d_model ** -0.5)
     n_ssm = layout(cfg)[1]
     if cfg.arch_type == "hybrid":
         spec["ssm_blocks"] = stack_specs(blocks.ssm_block_spec(cfg), n_ssm)
@@ -134,39 +144,63 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                            requires_grad=requires_grad)
 
 
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings [B,St,d], after the projected frontend embeddings
+    [B,F,d] of a vision or audio stack: [B,F+St,d]."""
+    x = embed_tokens(params["embedding"], tokens, cfg)
+    if cfg.frontend is not None:
+        if embeds is None:
+            raise ValueError(f"{cfg.name} needs frontend embeds")
+        fe = torch.einsum("bfd,de->bfe", embeds.to(x.dtype),
+                          params["frontend_proj"])
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
 def _block_hidden(kind, lp, x, cfg, positions, pad_mask):
     if kind == "ssm":
-        return blocks.ssm_block_full(lp, x, cfg, pad_mask)[0]
-    return blocks.attn_block_full(lp, x, cfg, positions, pad_mask)[0]
+        return blocks.ssm_block_full(lp, x, cfg, pad_mask)[0], None
+    return blocks.attn_block_full(lp, x, cfg, positions, pad_mask)[:2]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
-                   pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B,S] -> final-normed hidden [B,S,d]. SSM blocks run the
+                   pad_mask: Optional[torch.Tensor] = None, *,
+                   embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,St] (+ ``embeds`` [B,F,d] for a frontend stack) ->
+    (final-normed hidden [B,S,d], S = F + St, and the summed MoE
+    load-balance loss, float32 0-d: zero without MoE). SSM blocks run the
     chunked scan through the intra-chunk kernel op (on the card: no
     gradient); attention runs the plain ``chunked_causal_attention``."""
-    x = embed_tokens(params["embedding"], tokens, cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, _ in unstack_model(params, cfg):
         if remat:
             # no randomness in a layer, so no RNG state to stash
-            x = checkpoint(_block_hidden, kind, lp, x, cfg, positions,
-                           pad_mask, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(_block_hidden, kind, lp, x, cfg, positions,
+                              pad_mask, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = _block_hidden(kind, lp, x, cfg, positions, pad_mask)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x, a = _block_hidden(kind, lp, x, cfg, positions, pad_mask)
+        if a is not None:
+            aux = aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
-                   pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B,S] -> float32 logits [B,S,V]."""
-    h = forward_hidden(params, cfg, tokens, positions, pad_mask)
+                   pad_mask: Optional[torch.Tensor] = None, *,
+                   embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B,St] (+ ``embeds``) -> float32 logits [B,S,V]. The
+    reference also returns the aux loss; ``forward_hidden`` gives it."""
+    h, _ = forward_hidden(params, cfg, tokens, positions, pad_mask,
+                          embeds=embeds)
     return logits_from_hidden(params["embedding"], h, cfg)
 
 
@@ -177,8 +211,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Dict[str, Any]:
     """Stacked per-layer decode caches + per-sequence lengths, as the
     reference's: {"attn": {"k", "v": [n_attn, batch, L, KV, hd]}} when the
-    stack has attention layers, L = ``max_len`` (or ``window`` when
-    shorter); {"ssm": {"conv": [n_ssm, batch, K-1, Cd], "state": [n_ssm,
+    stack has attention layers (MLA: {"ckv": [n_attn, batch, L, r],
+    "krope": [n_attn, batch, L, rope]}), L = ``max_len`` (or ``window``
+    when shorter); {"ssm": {"conv": [n_ssm, batch, K-1, Cd], "state": [n_ssm,
     batch, nh, hd, ds] float32}} when it has SSM layers; "lengths" [batch]
     int32. In the model's dtype unless ``dtype``."""
     check_arch(cfg)
@@ -208,18 +243,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None,
-            window: Optional[int] = None
+            window: Optional[int] = None, *,
+            embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompts, returning (final-normed hidden [B,S,d], a decode
     cache populated with their keys and values).
 
     ``lengths`` [B] are the true prompt lengths of right-padded prompts
-    (default: all S). Attention runs through the flash attention kernel op,
-    causal with no pad mask: a valid row attends only positions before it,
-    which are all valid, so it gets exactly what the reference's masked
-    prefill gives it. Pad rows, and the cache entries at positions >=
-    lengths, differ from the reference's; decode never reads them (it
-    writes position ``lengths`` before attending ``lengths + 1`` keys).
+    (default: all of tokens' width). A frontend stack takes ``embeds``
+    [B,F,d], prepended to every row: S = F + tokens' width, and the cache
+    holds ``lengths + F`` valid positions. GQA/MHA attention runs through
+    the flash attention kernel op, causal with no pad mask: a valid row
+    attends only positions before it, which are all valid, so it gets
+    exactly what the reference's masked prefill gives it. Pad rows, and
+    the cache entries at positions >= lengths, differ from the
+    reference's; decode never reads them (it writes position ``lengths``
+    before attending ``lengths + 1`` keys). An MoE stack routes the pad
+    rows too, as the reference does, so where capacity drops pairs the
+    drop set can differ from the reference's. MLA attends through the
+    plain path with the pad mask and caches the latent (``ckv``) and the
+    rope key (``krope``).
 
     SSM blocks run the chunked scan with pad steps frozen (dt = 0) and
     take each row's conv window at its true end (``valid_lens=lengths``),
@@ -228,25 +271,28 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     window of the last K-1 (pad) rows. No gradient is recorded (the flash
     and SSD ops are forward only).
     """
-    x = embed_tokens(params["embedding"], tokens, cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     max_len = max_len or S
     if window is None and max_len < S:
         raise ValueError(
-            f"decode cache max_len={max_len} < prompt length {S}; only "
-            "windowed caches may wrap")
+            f"decode cache max_len={max_len} < prompt length {S} (includes "
+            "frontend tokens); only windowed caches may wrap")
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     if lengths is None:
-        lengths = torch.full((B,), S, dtype=torch.int32,
+        lengths = torch.full((B,), tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
+    if cfg.frontend is not None:
+        lengths = lengths + cfg.frontend_tokens  # the prefix is valid
     cache = init_cache(cfg, B, max_len, window=window, device=tokens.device)
     pad_mask = torch.arange(S, device=tokens.device)[None, :] \
         < lengths[:, None]
     slots = None
     if "attn" in cache:
-        L = cache["attn"]["k"].shape[2]
+        L = next(iter(cache["attn"].values())).shape[2]
         if S > L:
             slots = torch.arange(S - L, S, device=tokens.device) % L
+    names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
     for kind, lp, i in unstack_model(params, cfg):
         if kind == "ssm":
             x, c = blocks.ssm_block_full(lp, x, cfg, pad_mask,
@@ -254,10 +300,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache["ssm"]["conv"][i] = c["conv"]
             cache["ssm"]["state"][i] = c["state"]
             continue
-        x, (k, v) = blocks.attn_block_full(lp, x, cfg, positions, None,
-                                           window, flash=True)
-        for buf, new in ((cache["attn"]["k"][i], k),
-                         (cache["attn"]["v"][i], v)):
+        if cfg.mla is not None:
+            x, _, kv = blocks.attn_block_full(lp, x, cfg, positions,
+                                              pad_mask, window)
+        else:
+            x, _, kv = blocks.attn_block_full(lp, x, cfg, positions, None,
+                                              window, flash=True)
+        for name, new in zip(names, kv):
+            buf = cache["attn"][name][i]
             if slots is None:
                 buf[:, :S] = new
             else:
@@ -273,21 +323,21 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 layers: Optional[List[Layer]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence: tokens [B] -> (float32 logits [B,V],
-    cache). Each attention layer's key and value, and each SSM layer's conv
-    window and state, are written into ``cache``'s tensors in place; the
-    returned cache dict shares them and carries ``lengths + 1``. ``layers``
-    (``unstack_model(params, cfg)``) may be passed to skip unbinding the
-    stacked weights on every token. Nothing here reads a device value on
-    the host."""
+    cache). Each attention layer's key and value (MLA: latent and rope
+    key), and each SSM layer's conv window and state, are written into
+    ``cache``'s tensors in place; the returned cache dict shares them and
+    carries ``lengths + 1``. ``layers`` (``unstack_model(params, cfg)``)
+    may be passed to skip unbinding the stacked weights on every token.
+    Nothing here reads a device value on the host."""
     lengths = cache["lengths"]
     if layers is None:
         layers = unstack_model(params, cfg)
     x = embed_tokens(params["embedding"], tokens[:, None], cfg)[:, 0]
     if "attn" in cache:
-        ks = torch.unbind(cache["attn"]["k"], 0)
-        vs = torch.unbind(cache["attn"]["v"], 0)
+        per_layer = {k: torch.unbind(v, 0) for k, v in cache["attn"].items()}
+        L = next(iter(per_layer.values()))[0].shape[1]
         # the cache slot, keys attended and rope angles: one for all layers
-        index = attn_mod.decode_index(cfg, lengths, ks[0].shape[1], window)
+        index = attn_mod.decode_index(cfg, lengths, L, window)
     if "ssm" in cache:
         convs = torch.unbind(cache["ssm"]["conv"], 0)
         states = torch.unbind(cache["ssm"]["state"], 0)
@@ -296,8 +346,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
             x, _ = blocks.ssm_block_decode(
                 lp, x, cfg, {"conv": convs[i], "state": states[i]})
         else:
-            x, _ = blocks.attn_block_decode(lp, x, cfg,
-                                            {"k": ks[i], "v": vs[i]}, index)
+            x, _ = blocks.attn_block_decode(
+                lp, x, cfg, {k: v[i] for k, v in per_layer.items()}, index)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params["embedding"], x, cfg)
     return logits, dict(cache, lengths=lengths + 1)

@@ -14,6 +14,7 @@ either it or a plain dict.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -61,6 +62,18 @@ def stack_specs(spec: SpecTree, n: int, axis_name: str = "layers") -> SpecTree:
             for k, v in spec.items()}
 
 
+# A "normal" leaf with more elements than this is drawn one leading-axis
+# slice at a time (MoE expert stacks: qwen3-moe's w_gate is 9.66 G
+# elements, a 38.6 GB float32 draw). Smaller leaves are drawn whole: every
+# leaf of the dense configs that fit one card is (qwen3-8b's largest is
+# 1.81 G elements).
+WHOLE_DRAW_MAX = 1 << 31
+
+
+def _std(spec: ParamSpec) -> float:
+    return spec.scale if spec.scale is not None else _fan_in(spec.shape) ** -0.5
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, device=generator.device)
@@ -80,9 +93,21 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
         return dt + torch.log(-torch.expm1(-dt))
     if spec.init != "normal":
         raise ValueError(f"init {spec.init!r} is not ported yet")
-    std = spec.scale if spec.scale is not None else _fan_in(spec.shape) ** -0.5
     return torch.randn(spec.shape, generator=generator,
-                       device=generator.device) * std
+                       device=generator.device).mul_(_std(spec))
+
+
+def _init_sliced(spec: ParamSpec, generator: torch.Generator, *, device,
+                 dtype) -> torch.Tensor:
+    """A large "normal" leaf drawn one leading-axis slice at a time into
+    its ``dtype`` tensor on ``device``: the float32 transient is one
+    slice (one layer of a stacked leaf), not the whole leaf."""
+    std = _std(spec)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    for i in range(spec.shape[0]):
+        out[i] = torch.randn(spec.shape[1:], generator=generator,
+                             device=generator.device).mul_(std)
+    return out
 
 
 class ParamTree(nn.Module):
@@ -115,16 +140,21 @@ def init_from_specs(specs: SpecTree, generator: torch.Generator, *,
                     device="cuda", dtype=torch.bfloat16,
                     requires_grad: bool = False) -> ParamTree:
     """Draw every leaf in sorted-path order from ``generator`` (in float32
-    on the generator's device), scale by the reference's std, then cast to
-    ``dtype`` on ``device``. The values are not the JAX package's (its
+    on the generator's device), scale by the reference's std in place,
+    then cast to ``dtype`` on ``device``; a "normal" leaf of more than
+    ``WHOLE_DRAW_MAX`` elements is drawn a leading-axis slice at a time
+    (``_init_sliced``). The values are not the JAX package's (its
     threefry draws are not reproduced); the distributions are."""
     out: Dict[str, Any] = {}
     for path, spec in walk(specs):
         sub = out
         for p in path[:-1]:
             sub = sub.setdefault(p, {})
-        sub[path[-1]] = _init_leaf(spec, generator).to(device=device,
-                                                       dtype=dtype)
+        if spec.init == "normal" and math.prod(spec.shape) > WHOLE_DRAW_MAX:
+            leaf = _init_sliced(spec, generator, device=device, dtype=dtype)
+        else:
+            leaf = _init_leaf(spec, generator).to(device=device, dtype=dtype)
+        sub[path[-1]] = leaf
     return ParamTree(out, requires_grad)
 
 

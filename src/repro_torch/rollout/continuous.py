@@ -390,6 +390,11 @@ class ContinuousBatchingEngine:
                  rl: Optional[RLConfig] = None, greedy: bool = False,
                  prefix_cache=None, decode_horizon: int = 1,
                  prefill_chunk: int = 32, device="cuda"):
+        # MoE, MLA and frontend stacks serve through the dense
+        # RolloutEngine only, as in the reference
+        if cfg.arch_type not in ("dense", "ssm", "hybrid"):
+            raise ValueError(f"paged serving: dense/ssm/hybrid archs, got "
+                             f"{cfg.arch_type}")
         M.check_arch(cfg)
         self.cfg = cfg
         self.device = require_device(device)

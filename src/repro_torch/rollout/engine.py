@@ -4,7 +4,10 @@
 into a dense cache, then runs ``max_new`` steps of on-device sampling and
 ``decode_step``, and returns the sequences, per-token behaviour log-probs
 and the response mask, stamped with the policy version the async runtime
-gives it. The loop makes one device-to-host transfer, at its end. Weights
+gives it. It serves every stack the paged engine serves and the MoE and
+MLA stacks, which only it serves (as in the reference); a frontend
+(vision, audio) stack raises, since the engine is given no frontend
+embeddings. The loop makes one device-to-host transfer, at its end. Weights
 are passed per call: the async runtime swaps them under the engine, as an
 inference engine receiving weight updates.
 

@@ -115,12 +115,12 @@ def assemble_train_batch(rollouts: List[RolloutBatch], rewards: np.ndarray,
 # --------------------------------------------------------------------- score
 def _score_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(logp, entropy) [B, T-1] of tokens[:, 1:] and the auxiliary loss
-    (zero for the dense stacks ported so far)."""
-    hidden = M.forward_hidden(params, cfg, tokens[:, :-1])
+    """(logp, entropy) [B, T-1] of tokens[:, 1:] and the model's
+    auxiliary loss (the MoE load-balance loss; zero without MoE)."""
+    hidden, aux = M.forward_hidden(params, cfg, tokens[:, :-1])
     w = output_head_weight(params["embedding"], cfg)
     logp, entropy = token_logprob_entropy(hidden, w, tokens[:, 1:])
-    return logp, entropy, hidden.new_zeros((), dtype=torch.float32)
+    return logp, entropy, aux
 
 
 @torch.no_grad()

@@ -90,6 +90,11 @@ def assigned_reduced():
     return get
 
 
+# the MoE, MLA and frontend architectures (tests/test_torch_arch.py)
+NEW_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
+             "llava-next-mistral-7b", "musicgen-large")
+
+
 def _weights(which, request):
     if which in ASSIGNED_DENSE:
         return request.getfixturevalue("assigned_reduced")(which)
@@ -106,11 +111,12 @@ def test_configs_are_copies():
                  "qwen2.5-1.5b-reduced", "toy-2m-reduced", "mamba2-370m",
                  "zamba2-1.2b", "mamba2-370m-reduced",
                  "zamba2-1.2b-reduced") + ASSIGNED_DENSE + tuple(
-                     n + "-reduced" for n in ASSIGNED_DENSE):
+                     n + "-reduced" for n in ASSIGNED_DENSE) + NEW_ARCHS \
+            + tuple(n + "-reduced" for n in NEW_ARCHS):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_get_config(name))
     with pytest.raises(KeyError):
-        get_config("qwen3-moe-30b-a3b")
+        get_config("no-such-arch")
 
 
 def test_rmsnorm_rope_swiglu_embed_head_match_jax():
