@@ -230,7 +230,37 @@ Phases, each printing one JSON line:
              decode_step, the decode logits against forward_logits' last
              position; flash (S = prefix + 63; hd 64, G 1 for musicgen)
              and decode held and timed on their last call.
-17. the kernels line (all ten kernels, each with the shape its ms and
+17. step programs and the dry-run — Qwen2.5-1.5B at full width and
+             depth, bf16, layer weights x8, through launch/steps.py: (a)
+             make_train_step with A-3PO and 4 microbatches on 8 seeded
+             prompts of 992 tokens, each with 32 tokens sampled by the
+             RolloutEngine (which gives the behaviour logps), seeded
+             advantages: loss, entropy and gradient norm finite, the
+             parameters moved, the logprob forward and backward and the
+             A-3PO reduced op held against their plain versions on their
+             last call and timed there; in float32 at 4 layers, 4
+             microbatches against 1 (loss within rtol 1e-5, parameters
+             within rtol 5e-3, atol 5e-5). (b) make_prefill_step with 4
+             microbatches against 1 on 8 full 1024-token prompts: the
+             last-token logits and every cache leaf within the bf16
+             tolerance; flash held and timed on its last call. (c)
+             make_decode_step for 16 greedy tokens after a prefill into a
+             cache with room for them, each step's logits against
+             forward_logits; dense decode held and timed on its last call.
+             (d) restore_sharded of (a)'s parameters onto
+             make_local_mesh(): bit-equal, on the card. (e) moe_apply_ep on
+             the card's one-rank mesh at qwen3-moe-30b-a3b's layer shapes
+             (float32, one layer, no pair dropped) against moe_apply. (f)
+             on the card's host, subprocesses started after the build that
+             run beside phases 3-16: `python -m repro_torch.launch.dryrun --arch
+             qwen2.5-1.5b` for each of the four shapes and `--arch
+             qwen3-moe-30b-a3b --shape train_4k --ep-moe` on the 16x16
+             fake mesh, and `python -m repro_torch.launch.train --mesh
+             prod --arch qwen2.5-1.5b`: each exits 0; each record's
+             per-device argument GB, flops, collective bytes by kind and
+             dominant term printed (an H100 data-sheet roofline over a
+             fake mesh, not a measurement). The phase's seconds.
+18. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
@@ -239,8 +269,8 @@ Phases, each printing one JSON line:
              launches on its two paths; every kernel's launches on each
              path of phases 14 and 15, each path driven with the counts
              at 0; the paged kernels' times at phase 14 (c)'s and 15's
-             shapes, and rows 3-6's launches and times on phase 16's
-             paths), then the contract line (last):
+             shapes, and rows 3-6's launches and times on the paths of
+             phases 16 and 17), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -4701,11 +4731,437 @@ def phase_frontend(torch, name):
 
 
 
+# ------------------------------------------------- step programs, dry-run
+STEPS_PROMPTS = 8
+STEPS_PROMPT = 992
+STEPS_NEW = 32
+STEPS_MICRO = 4
+STEPS_F32_LAYERS = 4
+STEPS_DECODE = 16
+MB_LOSS_RTOL = 1e-5          # tests/test_launch.py:101-131
+MB_PARAM_TOL = {"rtol": 5e-3, "atol": 5e-5}
+EP_REL_TOL = 1e-5            # float32, one rank, no pair dropped
+DRYRUNS = [("dryrun", "qwen2.5-1.5b", shape, ()) for shape in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+    ("dryrun", "qwen3-moe-30b-a3b", "train_4k", ("--ep-moe",)),
+    ("train", "qwen2.5-1.5b", None, ())]
+DRYRUN_TIMEOUT_S = 600
+
+
+def _start_dryruns(tmp):
+    """Start the host-only dry-runs of (f), each its own process with a
+    fake process group, off the card, one thread each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for kind, arch, shape, extra in DRYRUNS:
+        if kind == "dryrun":
+            argv = ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", shape, *extra, "--log-jsonl",
+                    str(tmp / f"dryrun_{arch}_{shape}.jsonl")]
+        else:
+            argv = ["-m", "repro_torch.launch.train", "--mesh", "prod",
+                    "--arch", arch]
+        log = open(tmp / f"{kind}_{arch}_{shape}.log", "w")
+        procs.append(((kind, arch, shape, extra), log, time.perf_counter(),
+                      subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                       env=env, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _finish_dryruns(procs):
+    """Wait for (f)'s processes; each must exit 0. Returns their records:
+    each dry-run's per-device numbers (the H100 data-sheet roofline over
+    a fake mesh), the launcher's summary lines."""
+    from repro_torch.launch.dryrun import RESULTS_DIR
+    out, failed = [], []
+    ended = {}
+    try:
+        # each process's own end time: poll them all
+        while len(ended) < len(procs):
+            for i, (_, _, t0, p) in enumerate(procs):
+                if i in ended:
+                    continue
+                if p.poll() is not None:
+                    ended[i] = time.perf_counter() - t0
+                elif time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
+                    p.kill()
+                    p.wait()
+                    ended[i] = time.perf_counter() - t0
+            time.sleep(0.5)
+        for i, ((kind, arch, shape, extra), log, t0, p) in enumerate(procs):
+            rc, seconds = p.returncode, ended[i]
+            log.close()
+            text = Path(log.name).read_text()
+            # polled after the card's phases: ended within this many
+            # seconds of its start (the census's own time: "step_s")
+            rec = {"kind": kind, "arch": arch, "shape": shape,
+                   "flags": list(extra), "rc": rc, "done_within_s": seconds}
+            if rc != 0:
+                rec["tail"] = text[-3000:]
+                failed.append(rec)
+            elif kind == "train":
+                rec["lines"] = [ln for ln in text.splitlines()
+                                if ln.startswith("[sharded]")]
+            else:
+                with open(os.path.join(RESULTS_DIR, f"{arch}_{shape}_16x16"
+                                       ".json")) as f:
+                    r = json.load(f)
+                rec.update({
+                    "argument_gb_per_device":
+                        r["memory"]["argument_size_in_bytes"] / 1e9,
+                    "temp_gb_per_device":
+                        r["memory"]["temp_size_in_bytes"] / 1e9,
+                    "flops_per_device": r["hlo_flops_per_device"],
+                    "bytes_per_device": r["hlo_bytes_per_device"],
+                    "collective_bytes_per_device":
+                        r["collective_bytes_per_device"],
+                    "collective_ops": r["collective_ops"],
+                    "collective_bytes_by_axis": r[
+                        "collective_bytes_by_axis"],
+                    "roofline": r["roofline"],
+                    "roofline_source": r["roofline_source"],
+                    "useful_flops_ratio": r["useful_flops_ratio"],
+                    "replicated_fallbacks": r["replicated_fallbacks"],
+                    "census_ops": r["census_ops"], "step_s": r["compile_s"]})
+            emit(dict({"phase": "dryrun"}, **rec))
+            out.append(rec)
+    finally:
+        for _, log, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if failed:
+        raise AssertionError(f"dry-runs failed: {failed}")
+    return out
+
+
+def _steps_sites():
+    """``_capture_ops`` sites of the step programs' four kernel ops."""
+    from repro_torch.core import objective
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    return {"flash_attention": (attention, "flash_attention"),
+            "decode_attention": (attention, "decode_attention_op"),
+            "token_logprob_entropy": (steps, "token_logprob_entropy"),
+            "a3po_loss": (objective, "a3po_objective_reduced")}
+
+
+def _steps_batch(torch, rb, np):
+    """The train step's batch dict from a rollout: tokens, behaviour
+    logps, response mask, versions, and seeded advantages on the mask."""
+    from repro_torch.training import assemble_train_batch
+    tb = assemble_train_batch([rb], np.zeros(rb.tokens.shape[0],
+                                             np.float32), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    adv = torch.randn(tb.response_mask.shape, generator=g, device="cuda")
+    return {"tokens": tb.tokens, "behav_logp": tb.behav_logp,
+            "advantages": adv * tb.response_mask, "mask": tb.response_mask,
+            "versions": tb.versions}
+
+
+def _steps_train_f32(torch, np, batch):
+    """(a)'s float32 check at 4 layers, 4 microbatches against 1, as the
+    reference's equivalence test: init stds (no x8), behaviour logps the
+    model's own (so no ratio is clipped and the gradient is whole),
+    non-negative advantages (a mean of signed advantages cancels to ~1e-2
+    of its terms, and the loss's relative error grows by as much) and
+    Adam's eps 1e-4, as the port's Adam parity tests (a near-zero
+    gradient's sign is the summation order's)."""
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.training import adam_init, score_tokens
+    from repro_torch.training.optimizer import flatten
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b"),
+                              num_layers=STEPS_F32_LAYERS, dtype="float32")
+    out = {}
+    for nm in (1, STEPS_MICRO):
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(22), device="cuda",
+                               requires_grad=True)
+        behav = score_tokens(params, cfg, batch["tokens"])[0] * batch["mask"]
+        step = steps.make_train_step(cfg, RLConfig(learning_rate=1e-3,
+                                                   adam_eps=1e-4),
+                                     "a3po", num_microbatches=nm)
+        p2, _, loss, ent, gn = step(params, adam_init(params), dict(
+            batch, behav_logp=behav, advantages=batch["advantages"].abs()))
+        out[nm] = ({k: v.detach() for k, v in flatten(p2).items()},
+                   float(loss), float(gn))
+        del params, p2
+    (p1, l1, g1), (p4, l4, g4) = out[1], out[STEPS_MICRO]
+    worst = max(((p4[k] - v).abs() / (MB_PARAM_TOL["atol"] + MB_PARAM_TOL[
+        "rtol"] * v.abs())).max().item() for k, v in p1.items())
+    if not (abs(l1) > 1e-3 and g1 > 1e-3):
+        raise AssertionError(f"microbatch check has no gradient: {l1} {g1}")
+    rec = {"loss_nm1": l1, f"loss_nm{STEPS_MICRO}": l4,
+           "loss_rel_err": abs(l4 - l1) / abs(l1), "loss_rtol": MB_LOSS_RTOL,
+           "grad_norm_nm1": g1, f"grad_norm_nm{STEPS_MICRO}": g4,
+           "param_worst_err_over_tol": worst, "param_tol": MB_PARAM_TOL}
+    if not rec["loss_rel_err"] <= MB_LOSS_RTOL or not worst <= 1.0:
+        raise AssertionError(f"microbatch accumulation: {rec}")
+    return rec
+
+
+def _steps_ep(torch):
+    """(e) moe_apply_ep on the card's one-rank mesh against moe_apply, at
+    qwen3-moe-30b-a3b's layer shapes in float32, with the reduced
+    configs' capacity factor 4 (no pair overflows; checked)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import ShardingEnv, use_sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_from_specs
+    cfg = get_config("qwen3-moe-30b-a3b")
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, num_layers=1, dtype="float32",
+                              moe=dataclasses.replace(m, capacity_factor=4.0))
+    p = init_from_specs(moe.moe_spec(cfg), torch.Generator(device="cuda")
+                        .manual_seed(23), device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(4, 60, cfg.d_model, generator=g, device="cuda") * 0.5
+    with torch.no_grad():
+        y0, a0 = moe.moe_apply(p, x, cfg)
+        mesh = make_local_mesh()
+        env = ShardingEnv(mesh)
+        env.ep_shard_map = True
+        with use_sharding(env):
+            y1, a1 = moe.moe_apply(p, x, cfg)
+        T = x.shape[0] * x.shape[1]
+        top_i = moe.route(p["router"], x.reshape(T, -1), cfg.moe)[2]
+        dropped = int((moe.dispatch_slots(top_i, cfg.moe, moe.capacity(
+            cfg.moe, T))[1] == m.num_experts * moe.capacity(cfg.moe, T))
+            .sum())
+    rec = {"mesh": repr(mesh), "device": str(y1.device),
+           "shape": list(x.shape), "experts": m.num_experts,
+           "top_k": m.top_k, "dropped_pairs": dropped,
+           "rel_err": ((y1 - y0).abs().max() / y0.abs().max()).item(),
+           "aux_err": abs(float(a1) - float(a0)), "tol": EP_REL_TOL}
+    if y1.device.type != "cuda" or dropped or not rec["rel_err"] <= \
+            EP_REL_TOL or not rec["aux_err"] <= 1e-6:
+        raise AssertionError(f"moe_apply_ep on one rank: {rec}")
+    del p, x, y0, y1
+    return rec
+
+
+def phase_steps(torch, tmp, procs):
+    """17: the step programs at Qwen2.5-1.5B full width and the dry-run
+    (see the module docstring); ``procs``: (f)'s processes, started after
+    the build. Returns (launches, times) of (a)-(c)."""
+    import numpy as np
+    from repro_torch.configs.base import InputShape, RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.distributed.sharding import ShardingEnv
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.rollout.engine import RolloutEngine
+    from repro_torch.training import adam_init
+    from repro_torch.training.checkpoints import (
+        restore_sharded,
+        save_checkpoint,
+    )
+    from repro_torch.training.optimizer import flatten
+
+    t_phase = time.perf_counter()
+    try:
+        cfg = get_config("qwen2.5-1.5b")
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(20), device="cuda",
+                               dtype=torch.bfloat16, requires_grad=True)
+        with torch.no_grad():
+            _scale_blocks(torch, params, SCALE)
+        g = torch.Generator(device="cuda").manual_seed(25)
+        prompts = torch.randint(4, cfg.vocab_size,
+                                (STEPS_PROMPTS, STEPS_PROMPT), generator=g,
+                                device="cuda").cpu().numpy().astype(np.int32)
+        lengths = np.full(STEPS_PROMPTS, STEPS_PROMPT, np.int32)
+        engine = RolloutEngine(cfg, RLConfig(temperature=1.0, top_p=1.0),
+                               max_new_tokens=STEPS_NEW)
+        with torch.no_grad():
+            rb = engine.generate(params, prompts, lengths,
+                                 torch.Generator(device="cuda")
+                                 .manual_seed(26), version=0)
+        gen = _check_generated(np, rb, "steps rollout")
+        batch = _steps_batch(torch, rb, np)
+
+        # (a) the train step, A-3PO, 4 microbatches, full depth
+        torch.cuda.synchronize()
+        _reset_counts()
+        step = steps.make_train_step(cfg, RLConfig(), "a3po",
+                                     num_microbatches=STEPS_MICRO)
+        with _capture_ops(torch, _steps_sites()) as seen:
+            t0 = time.perf_counter()
+            new, _, loss, ent, gn = step(params, adam_init(params), batch)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        launches = _path_counts(TRAIN_PATH)
+        changed, total = _changed(torch, params, new)
+        train = {"seconds": train_s, "loss": float(loss),
+                 "entropy": float(ent), "grad_norm": float(gn),
+                 "params_changed": changed, "params_total": total,
+                 "batch": list(batch["tokens"].shape),
+                 "microbatches": STEPS_MICRO, "launches": dict(launches)}
+        if not all(math.isfinite(train[k]) for k in ("loss", "entropy",
+                                                      "grad_norm")) \
+                or changed == 0 or min(launches[k] for k in TRAIN_PATH[2:]) \
+                <= 0:
+            raise AssertionError(f"steps train: {train}")
+        held = _hold_path_kernels(torch, seen)
+        times = _time_path_kernels(torch, seen, "steps_train")
+        train["f32_microbatches"] = _steps_train_f32(torch, np, batch)
+        del seen, new
+        torch.cuda.empty_cache()
+
+        # (b) prefill, 4 microbatches against 1, the full 1024 tokens
+        tokens = batch["tokens"].contiguous()
+        B, S = tokens.shape
+        pshape = InputShape("steps_prefill", S, B, "prefill")
+        with torch.no_grad():
+            l1, c1 = steps.make_prefill_step(cfg, pshape, 1)(
+                params, {"tokens": tokens})
+            _reset_counts()
+            with _capture_ops(torch, _steps_sites()) as seen:
+                l4, c4 = steps.make_prefill_step(cfg, pshape, STEPS_MICRO)(
+                    params, {"tokens": tokens})
+            n_flash = _path_counts(("flash_attention",))["flash_attention"]
+        tol = TOL["bfloat16"]
+        worst = max(((a.float() - b.float()).abs() / (tol["atol"] + tol[
+            "rtol"] * b.float().abs())).max().item() for a, b in
+            [(l4, l1)] + list(zip(flatten(c4).values(),
+                                  flatten(c1).values())))
+        prefill = {"shape": [B, S], "microbatches": STEPS_MICRO,
+                   "flash_launches": n_flash, "worst_err_over_tol": worst,
+                   "tol": tol}
+        if not worst <= 1.0 or n_flash != cfg.num_layers * STEPS_MICRO:
+            raise AssertionError(f"steps prefill: {prefill}")
+        held.update(_hold_path_kernels(torch, seen))
+        times.update(_time_path_kernels(torch, seen, "steps_prefill"))
+        launches["flash_attention"] += n_flash
+        del c1, c4, l1, l4, seen
+
+        # (c) decode 16 greedy tokens after a prefill with room
+        dshape = InputShape("steps_decode", S + STEPS_DECODE, B, "decode")
+        decode_step = steps.make_decode_step(cfg, dshape)
+        with torch.no_grad():
+            h, cache = M.prefill(params, cfg, tokens,
+                                 max_len=S + STEPS_DECODE)
+            nxt = logits_from_hidden(params["embedding"], h[:, -1:],
+                                     cfg)[:, 0].argmax(-1)
+            out_tokens, step_logits = [], []
+            _reset_counts()
+            with _capture_ops(torch, _steps_sites()) as seen:
+                for _ in range(STEPS_DECODE):
+                    out_tokens.append(nxt)
+                    logits, cache = decode_step(params, {"cache": cache,
+                                                         "tokens": nxt})
+                    step_logits.append(logits)
+                    nxt = logits.argmax(-1)
+            n_dec = _path_counts(("decode_attention",))["decode_attention"]
+            seq = torch.cat([tokens, torch.stack(out_tokens, 1)], 1)
+            # position S + i predicts what decode step i's logits do
+            full = M.forward_logits(params, cfg, seq)[:, S:]
+            lp_full = torch.log_softmax(full, -1)
+            lp_dec = torch.log_softmax(torch.stack(step_logits, 1), -1)
+        best = lp_dec.argmax(-1, keepdim=True)
+        top = lp_full.argmax(-1, keepdim=True)
+        decode = {"tokens": STEPS_DECODE, "decode_launches": n_dec,
+                  "max_abs_logp_err_at_argmaxes": max(
+                      (lp_full.gather(-1, i) - lp_dec.gather(-1, i)).abs()
+                      .max().item() for i in (best, top)),
+                  "max_gap_to_best_logp": (lp_full.max(-1).values
+                                           - lp_full.gather(-1, best)[..., 0])
+                  .max().item(),
+                  "argmax_agree": float((best == top).float().mean()),
+                  "tol": {"logp": ENGINE_LOGP_TOL, "gap": ENGINE_GAP_TOL}}
+        if decode["max_abs_logp_err_at_argmaxes"] > ENGINE_LOGP_TOL \
+                or decode["max_gap_to_best_logp"] > ENGINE_GAP_TOL \
+                or n_dec != cfg.num_layers * STEPS_DECODE \
+                or not bool(torch.isfinite(lp_dec).all()):
+            raise AssertionError(f"steps decode: {decode}")
+        held.update(_hold_path_kernels(torch, seen, "top_key_dropped"))
+        times.update(_time_path_kernels(torch, seen, "steps_decode"))
+        launches["decode_attention"] = n_dec
+        del cache, full, lp_full, lp_dec, seen
+
+        # (d) restore (a)'s parameters onto the local mesh
+        path = str(tmp / "steps_params")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, {"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        mesh = make_local_mesh()
+        t0 = time.perf_counter()
+        restored, _ = restore_sharded(path, M.param_shardings(
+            cfg, ShardingEnv(mesh)))
+        torch.cuda.synchronize()
+        restore = {"mesh": repr(mesh), "save_s": save_s,
+                   "restore_s": time.perf_counter() - t0,
+                   "bytes": os.path.getsize(path + ".npz")}
+        got = flatten(restored)
+        # bf16 leaves come back as the float32 they were saved as, which
+        # holds them exactly: rounded back, bit for bit
+        bad = [k for k, v in flatten(params).items()
+               if got[k].device.type != "cuda"
+               or not torch.equal(got[k].to(v.dtype).view(torch.int16),
+                                  v.detach().view(torch.int16))
+               or not torch.equal(got[k], v.detach().float())]
+        restore["leaves"], restore["bit_equal"] = len(got), not bad
+        if bad:
+            raise AssertionError(f"restore_sharded: {bad} {restore}")
+        del restored, got
+        os.remove(path + ".npz")
+        os.remove(path + ".json")
+
+        # (e) the expert-parallel MoE on the card's one-rank mesh
+        del params
+        torch.cuda.empty_cache()
+        ep = _steps_ep(torch)
+        gpu_s = time.perf_counter() - t_phase
+
+        # (f) the dry-runs
+        dry = _finish_dryruns(procs)
+    finally:
+        for _, log, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "steps", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": "bfloat16", "layer_weight_scale": SCALE,
+          "generated": gen, "train": train, "prefill": prefill,
+          "decode": decode, "restore_sharded": restore, "moe_ep": ep,
+          "held": held, "launches": launches, "gpu_parts_s": gpu_s,
+          "dryruns_done_within_s": {
+              f"{d['kind']}:{d['arch']}:{d['shape']}": d["done_within_s"]
+              for d in dry},
+          "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+    return launches, times
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     import torch
     phase_build()
+    # phase 17 (f)'s dry-runs need only the host: they run beside the
+    # card's phases from here, and phase 17 collects them
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start_dryruns(Path(tmp))
+        try:
+            return _main(torch, smi, t_start, Path(tmp), procs)
+        finally:
+            for _, log, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+
+
+def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
     with torch.no_grad():
         kernels = phase_kernels(torch)
         launches = phase_engine(torch)
@@ -4755,6 +5211,9 @@ def main() -> int:
         for name in ("llava-next-mistral-7b", "musicgen-large"):
             by_path[f"frontend_{name}"], at_paths[f"frontend_{name}"] = \
                 phase_frontend(torch, name)
+    torch.cuda.empty_cache()
+    by_path["steps"], at_paths["steps"] = phase_steps(torch, dry_tmp,
+                                                      dry_procs)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),

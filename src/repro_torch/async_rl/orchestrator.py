@@ -257,7 +257,10 @@ class AsyncOrchestrator:
                     time.sleep(stall.magnitude)
             t0 = time.perf_counter()
             if self.control_plane is not None:
-                rb, rewards = self._rollout_once_cp(generator)
+                try:
+                    rb, rewards = self._rollout_once_cp(generator)
+                except QueueClosed:
+                    return  # stopped while admission was held: clean exit
             else:
                 params, version = store.latest()
                 with span("rollout", version=version) as sp:

@@ -153,6 +153,11 @@ def _reduced_backward_kernel(g, metrics, coef, mask, *, kl_coef,
     return g_logp, g_ent
 
 
+# devices that take the plain version: the CPU, and meta (the dry-run
+# traces shapes only)
+_PLAIN = ("cpu", "meta")
+
+
 def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.detach().float().reshape(-1).contiguous()
 
@@ -160,7 +165,7 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 def _run_forward(logp, behav, alpha, adv, mask, clip_eps, iw_cap,
                  use_kernel):
     args = tuple(_flat(x) for x in (logp, behav, alpha, adv, mask))
-    if use_kernel and logp.device.type != "cpu":
+    if use_kernel and logp.device.type not in _PLAIN:
         return _forward_kernel(*args, clip_eps, iw_cap)
     return a3po_loss_ref(*args, clip_eps=clip_eps, iw_cap=iw_cap)
 
@@ -185,7 +190,7 @@ class _A3POObjective(torch.autograd.Function):
         # by construction (they are detached downstream)
         clip_tok, iw, ratio, adv, mask = ctx.saved_tensors
         g = _flat(g_loss)
-        if ctx.use_kernel and g.device.type != "cpu":
+        if ctx.use_kernel and g.device.type not in _PLAIN:
             g_logp = _backward_kernel(g, clip_tok, iw, ratio, adv, mask)
         else:
             g_logp = a3po_loss_bwd_ref(g, clip_tok, iw, ratio, adv, mask)
@@ -229,7 +234,7 @@ class _A3POObjectiveReduced(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         kw = dict(clip_eps=clip_eps, iw_cap=iw_cap, kl_coef=kl_coef,
                   entropy_coef=entropy_coef)
-        if use_kernel and logp.device.type != "cpu":
+        if use_kernel and logp.device.type not in _PLAIN:
             ent = None if entropy is None else _flat(entropy)
             loss, metrics, coef = _reduced_forward_kernel(
                 *(_flat(x) for x in (logp, behav, alpha, adv, mask)), ent,
@@ -253,7 +258,7 @@ class _A3POObjectiveReduced(torch.autograd.Function):
         metrics, coef, mask = ctx.saved_tensors
         kw = dict(ctx.kw)
         kw["with_entropy"] &= ctx.needs_input_grad[5]
-        if ctx.use_kernel and coef.device.type != "cpu":
+        if ctx.use_kernel and coef.device.type not in _PLAIN:
             g_logp, g_ent = _reduced_backward_kernel(
                 g.detach().float().reshape(1), metrics, coef, mask, **kw)
         else:

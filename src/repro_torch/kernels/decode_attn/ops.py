@@ -64,7 +64,7 @@ def paged_decode_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
     1; a row of length 0 gives 0 on the card) -> [S,H,hd].
     """
     global LAUNCHES
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes
         return paged_decode_attention_ref(q, pool_k, pool_v, block_tables,
                                           lengths)
     if q.device.type != "cuda":
@@ -139,7 +139,7 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     nothing here reads ``lengths`` on the host), float32 the first design.
     """
     global DENSE_LAUNCHES, DENSE_PLAN
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes
         return decode_attention_ref(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention: no kernel for {q.device}")

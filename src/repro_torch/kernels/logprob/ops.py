@@ -248,7 +248,8 @@ class _TokenLogprobEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, w, targets, use_kernel):
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
-        kern = use_kernel and hidden.device.type != "cpu"
+        # meta tensors (the dry-run's shapes) take the plain version
+        kern = use_kernel and hidden.device.type not in ("cpu", "meta")
         if kern:
             logp, ent, logz, mu = _forward_kernel(hidden, w, targets)
         else:

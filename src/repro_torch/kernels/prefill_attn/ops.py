@@ -35,7 +35,7 @@ def paged_prefill_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
     """
     global LAUNCHES
     del kv_lens
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes
         return paged_prefill_attention_ref(q, pool_k, pool_v, block_tables,
                                            seg_ids, q_pos)
     if q.device.type != "cuda":

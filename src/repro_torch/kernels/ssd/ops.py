@@ -34,11 +34,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """False for CPU tensors (the plain version); True for CUDA tensors
-    that the kernel may take; raises for any other device and under
-    autograd on the card."""
+    """False for CPU tensors (the plain version; also for ``meta``
+    tensors, which the dry-run traces for shapes only); True for CUDA
+    tensors that the kernel may take; raises for any other device and
+    under autograd on the card."""
     dev = tensors[0].device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")

@@ -27,9 +27,13 @@ uninterrupted run with ``--engine sim``), ``--fault KIND@AT[xN][:MAG]``
 (repeatable, seeded by ``--fault-seed``) injects deterministic faults and
 ``--guard skip|rollback`` applies the non-finite update policy.
 
-Not ported yet; exits non-zero naming the ROADMAP item that brings it:
-``--mesh prod|prod-multipod`` (ROADMAP queue 1, "Distribution and
-launch").
+``--mesh prod|prod-multipod`` runs the sharded dry-run, as the reference
+does on a host: the training step on the production mesh (a fake process
+group of 256 / 512 ranks, ``launch.mesh``), with params, Adam moments and
+batch as ``meta`` DTensors in the ``ShardingEnv``'s placements, run once
+under the per-device cost census. It asserts that no weight or Adam moment
+of two or more dims is fully replicated, before and after the step, and
+exits 0; nothing is allocated and no card is needed.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-1.5b \
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 import warnings
 from typing import List, Optional
 
@@ -73,10 +78,95 @@ from repro_torch.resilience import (
 )
 from repro_torch.training.checkpoints import save_checkpoint
 
-_NOT_PORTED = {
-    "mesh": "--mesh prod / prod-multipod: sharded meshes are not ported yet "
-            "(ROADMAP queue 1, 'Distribution and launch')",
-}
+def _replicated_weights(sh_tree, abs_tree, logical_tree) -> List[str]:
+    """Paths of weights of two or more dims whose sharding replicates them
+    over every mesh axis. A weight is a leaf with a d_model ("embed")
+    axis: the reference also counts per-layer bias vectors stacked over
+    the layers (qwen2.5's qkv biases, whose heads do not divide the model
+    axis), so its own check fails on qwen2.5-1.5b."""
+    from repro_torch.training.optimizer import flatten
+    sh, logical = flatten(sh_tree), flatten(logical_tree)
+    return [k for k, leaf in flatten(abs_tree).items()
+            if leaf.dim() >= 2 and "embed" in logical[k]
+            and sh[k].is_fully_replicated]
+
+
+def sharded_dryrun(cfg, rl: RLConfig, env, algo, batch_size: int = 32,
+                   seq_len: int = 14, num_microbatches: int = 1,
+                   log: Optional[RunLogger] = None) -> dict:
+    """Run ``Trainer.step``'s update (``trainer._train_step``) once on the
+    production mesh with ``ShardingEnv`` placements for params, Adam
+    moments and batch, all ``meta`` DTensors, under the cost census.
+    Raises if a weight or moment of two or more dims is fully replicated,
+    before or after the step. Returns the census's numbers."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.op_cost import Census, mesh_group_axes
+    from repro_torch.distributed.sharding import shard_tree, use_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.params import logical_axes_tree
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.optimizer import flatten
+
+    say = log.print if log is not None else print
+    params_abs = M.abstract_params(cfg)
+    param_sh = M.param_shardings(cfg, env)
+    opt_abs = steps.abstract_opt_state(params_abs)
+    opt_sh = steps.opt_shardings(param_sh, env)
+    logical = logical_axes_tree(M.model_spec(cfg))
+    bad = _replicated_weights(param_sh, params_abs, logical)
+    assert not bad, f"fully-replicated weight tensors on the mesh: {bad}"
+    bad_m = _replicated_weights(opt_sh["m"], params_abs, logical)
+    assert not bad_m, f"fully-replicated Adam moments on the mesh: {bad_m}"
+    n_leaves = len(flatten(param_sh))
+    say(f"[sharded] params + Adam moments carry ShardingEnv placements "
+        f"({n_leaves} tensors, 0 replicated weight matrices)")
+
+    B, T = batch_size, seq_len
+
+    def meta(shape, dtype, logical):
+        return shard_tree(torch.empty(shape, dtype=dtype, device="meta"),
+                          env.sharding(shape, logical))
+
+    batch = trainer_mod.TrainBatch(
+        tokens=meta((B, T), torch.long, ("batch", None)),
+        response_mask=meta((B, T - 1), torch.float32, ("batch", None)),
+        behav_logp=meta((B, T - 1), torch.float32, ("batch", None)),
+        versions=meta((B,), torch.int32, ("batch",)),
+        rewards=meta((B,), torch.float32, ("batch",)))
+    version = meta((), torch.int32, ())
+    params = shard_tree(params_abs, param_sh)
+    params = {k: v.requires_grad_(True) for k, v in flatten(params).items()}
+    from repro_torch.training.optimizer import unflatten
+    opt = shard_tree(opt_abs, opt_sh)
+    census = Census(mesh_group_axes(env.mesh))
+    t0 = time.time()
+    with use_sharding(env), implicit_replication(), census:
+        # the dry-run has no recomputed prox; behav_logp stands in (same
+        # shape and placements)
+        prox = batch.behav_logp if algo.needs_prox_forward else None
+        new_params, _, _ = trainer_mod._train_step(
+            unflatten(params), opt, version, batch, prox, cfg=cfg, rl=rl,
+            algo=algo, num_minibatches=rl.num_minibatches,
+            num_microbatches=num_microbatches, skip_nonfinite=False,
+            donate_params=False)
+    dt = time.time() - t0
+    out = flatten(new_params)
+    rep = tuple([Replicate()] * env.mesh.ndim)
+    flat_logical = flatten(logical)
+    bad_out = [k for k, leaf in out.items()
+               if leaf.dim() >= 2 and "embed" in flat_logical[k]
+               and (not isinstance(leaf, DTensor)
+                    or tuple(leaf.placements) == rep)]
+    assert not bad_out, f"the step replicates weights: {bad_out}"
+    c = census.cost
+    say(f"[sharded] train_step {dt:.1f}s | flops/dev {c.flops:.3g} "
+        f"coll/dev {c.collective_bytes:.3g}B | output params stay sharded")
+    return {"step_s": dt, "flops_per_device": c.flops,
+            "collective_bytes_per_device": c.collective_bytes,
+            "n_param_tensors": n_leaves}
 
 
 def print_algo_list() -> None:
@@ -192,18 +282,44 @@ def _resilience(args, device, log):
     return resilience, resume
 
 
+def _mesh_dryrun(args, algo) -> None:
+    """``--mesh prod|prod-multipod``: the sharded dry-run on the host."""
+    from repro_torch.distributed.sharding import ShardingEnv
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_config(args.arch)
+    if args.device == "cpu":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    mesh = make_production_mesh(multi_pod=args.mesh == "prod-multipod")
+    log = RunLogger(args.log_jsonl, quiet=args.quiet)
+    try:
+        log.print(f"mesh {args.mesh} ({mesh.size()} ranks, fake process "
+                  f"group), arch {args.arch}, algo {algo.name}")
+        log.log_event("meta", mesh=args.mesh, n_devices=mesh.size(),
+                      arch=args.arch, algo=algo.name, steps=args.steps,
+                      engine=args.engine, staleness=args.staleness,
+                      device="meta")
+        rl = RLConfig(group_size=4, num_minibatches=2, learning_rate=2e-4,
+                      max_staleness=args.staleness + 1)
+        out = sharded_dryrun(cfg, rl, ShardingEnv(mesh), algo,
+                             num_microbatches=args.microbatch, log=log)
+        log.log_event("sharded_dryrun", **out)
+    finally:
+        log.close()
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = _parser().parse_args(argv)
     if args.algo == "list":
         print_algo_list()
         return
-    if args.mesh != "local":
-        raise SystemExit(_NOT_PORTED["mesh"])
     if args.method:
         warnings.warn("--method is deprecated; use --algo",
                       DeprecationWarning)
     # an explicit --algo always wins over the deprecated --method alias
     algo = resolve_algorithm(args.algo or args.method or "a3po")
+    if args.mesh != "local":
+        _mesh_dryrun(args, algo)
+        return
     device = require_device(args.device)
 
     cfg = get_config(args.arch)

@@ -16,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, current_env, write_rows
 from repro_torch.kernels.decode_attn.ops import decode_attention_op
 # the plain single-query attention, under the reference's name here
 from repro_torch.kernels.decode_attn.ref import decode_attention  # noqa: F401
@@ -146,8 +147,10 @@ def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,
     """cache [B, L, KV, hd] <- new [B, KV, hd] at ``index.write_idx``, in
     place, as one indexed write on the device (the reference returns a new
     array). Returns ``cache_arr``."""
-    cache_arr[index.rows, index.write_idx] = new.to(cache_arr.dtype)
-    return cache_arr
+    if current_env() is None:
+        cache_arr[index.rows, index.write_idx] = new.to(cache_arr.dtype)
+        return cache_arr
+    return write_rows(cache_arr, index.write_idx, new)
 
 
 def attention_full(params, x: torch.Tensor, cfg: ModelConfig,
@@ -167,6 +170,8 @@ def attention_full(params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = project_qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "act_heads", None)
     if flash:
         if pad_mask is not None:
             raise ValueError("flash attention takes no pad mask")
@@ -179,6 +184,7 @@ def attention_full(params, x: torch.Tensor, cfg: ModelConfig,
         out = chunked_causal_attention(q, k, v, q_positions=positions,
                                        kv_positions=positions,
                                        kv_valid=pad_mask, window=window)
+    out = constrain(out, "batch", None, "act_heads", None)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
 
 
@@ -219,3 +225,8 @@ def prefill_into_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
     return cache
+
+
+# the decode cache's logical axes (the reference's ``KV_CACHE_LOGICAL``)
+KV_CACHE_LOGICAL = {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+                    "v": ("batch", "kv_seq", "kv_heads", "head_dim")}

@@ -126,6 +126,11 @@ def ssm_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
     return x + y, cache
 
 
+def attn_cache_logical(cfg: ModelConfig):
+    return (mla_mod.MLA_CACHE_LOGICAL if cfg.mla is not None
+            else attn_mod.KV_CACHE_LOGICAL)
+
+
 def attn_cache_for(cfg: ModelConfig, batch: int, max_len: int, *,
                    window: Optional[int] = None,
                    dtype: Optional[torch.dtype] = None,

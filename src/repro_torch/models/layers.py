@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamSpec
 
 
@@ -71,7 +72,10 @@ def swiglu_spec(d: int, d_ff: int):
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    # the leading dim stays "batch": None would force its replication
+    h = constrain(F.silu(g) * u, "batch", *((None,) * (x.dim() - 2)),
+                  "act_ff")
+    return h @ params["w_down"]
 
 
 # ------------------------------------------------------------------ embedding
@@ -116,4 +120,5 @@ def logits_from_hidden(params, hidden: torch.Tensor, cfg: ModelConfig,
         out = h2 @ w.float()
     else:
         out = torch.mm(h2, w, out_dtype=torch.float32)
-    return out.reshape(*lead, w.shape[-1])
+    out = out.reshape(*lead, w.shape[-1])
+    return constrain(out, "batch", *((None,) * (out.dim() - 2)), "vocab")

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, write_rows
 from repro_torch.models.attention import NEG_INF, chunked_causal_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
@@ -77,6 +78,8 @@ def mla_full(params, x: torch.Tensor, cfg: ModelConfig,
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         B, S, h, m.qk_rope_head_dim)], dim=-1)
     qc = torch.cat([q_nope, q_rope], dim=-1)
+    qc = constrain(qc, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "act_heads", None)
     out = chunked_causal_attention(
         qc, k, v, q_positions=positions, kv_positions=positions,
         kv_valid=pad_mask, window=window, softmax_scale=_scale(cfg))
@@ -95,7 +98,6 @@ def mla_decode(params, x: torch.Tensor, cfg: ModelConfig,
     (q_nope W_uk) . c_kv + q_rope . k_rope. Returns (y [B, d], cache).
     Nothing here reads a device value on the host."""
     m = cfg.mla
-    B = x.shape[0]
     pos = lengths[:, None]
     q = torch.einsum("bd,dhk->bhk", x, params["wq"])
     q_nope, q_rope = torch.split(
@@ -105,10 +107,9 @@ def mla_decode(params, x: torch.Tensor, cfg: ModelConfig,
 
     ckv, krope = cache["ckv"], cache["krope"]
     L = ckv.shape[1]
-    rows = torch.arange(B, device=x.device)
     idx = torch.clamp(lengths, max=L - 1).long()
-    ckv[rows, idx] = c_kv_t[:, 0].to(ckv.dtype)
-    krope[rows, idx] = k_rope_t[:, 0].to(krope.dtype)
+    write_rows(ckv, idx, c_kv_t[:, 0])
+    write_rows(krope, idx, k_rope_t[:, 0])
     valid = torch.arange(L, device=x.device)[None, :] \
         < torch.clamp(lengths + 1, max=L)[:, None]
 
@@ -134,3 +135,8 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                dtype=dtype, device=device),
             "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
                                  dtype=dtype, device=device)}
+
+
+# the latent cache's logical axes (the reference's ``MLA_CACHE_LOGICAL``)
+MLA_CACHE_LOGICAL = {"ckv": ("batch", "kv_seq", "mla_rank"),
+                     "krope": ("batch", "kv_seq", None)}

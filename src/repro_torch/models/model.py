@@ -35,11 +35,19 @@ from repro_torch.models.layers import (
     rmsnorm_spec,
 )
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.distributed.sharding import (
+    constrain,
+    current_env,
+    is_distributed,
+    shard_tree,
+)
 from repro_torch.models.params import (
     ParamSpec,
     ParamTree,
     SpecTree,
+    abstract_from_specs,
     init_from_specs,
+    shardings_from_specs,
     stack_specs,
     unstack_layers,
 )
@@ -144,6 +152,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                            requires_grad=requires_grad)
 
 
+def abstract_params(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
+    """``meta`` tensors of every weight (the dry-run's stand-ins)."""
+    return abstract_from_specs(model_spec(cfg), dtype or torch_dtype(cfg))
+
+
+def param_shardings(cfg: ModelConfig, env):
+    """The ``Sharding`` of every weight under ``env``, mirroring the
+    params."""
+    return shardings_from_specs(model_spec(cfg), env)
+
+
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                   embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """Token embeddings [B,St,d], after the projected frontend embeddings
@@ -155,7 +174,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
         fe = torch.einsum("bfd,de->bfe", embeds.to(x.dtype),
                           params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)
-    return x
+    return constrain(x, "batch", None, "act_embed")
 
 
 def _block_hidden(kind, lp, x, cfg, positions, pad_mask):
@@ -179,8 +198,14 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = x.new_zeros((), dtype=torch.float32)  # a DTensor on a mesh
+    seq_sp = cfg.arch_type not in ("ssm", "hybrid")
     for kind, lp, _ in unstack_model(params, cfg):
+        if seq_sp:
+            # sequence-parallel region boundary of the attention stacks:
+            # under the opt-in ("seq_sp" -> "model") rule the residual
+            # stream is seq-sharded between blocks; by default a no-op
+            x = constrain(x, "batch", "seq_sp", "act_embed")
         if remat:
             # no randomness in a layer, so no RNG state to stash
             x, a = checkpoint(_block_hidden, kind, lp, x, cfg, positions,
@@ -235,7 +260,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             cfg, batch, dtype=dtype, device=device), n_ssm)
     cache["lengths"] = torch.zeros((batch,), dtype=torch.int32,
                                    device=device)
+    env = current_env()
+    if env is not None and is_distributed(env.mesh):
+        # on a mesh the cache is born in its placements (the dry-run)
+        cache = shard_tree(cache, cache_shardings(cfg, env, cache))
     return cache
+
+
+def cache_logical_axes(cfg: ModelConfig, cache: Dict[str, Any]):
+    """The logical axes of every leaf of a decode cache."""
+    out: Dict[str, Any] = {}
+    if "attn" in cache:
+        log = blocks.attn_cache_logical(cfg)
+        out["attn"] = {k: ("layers",) + v for k, v in log.items()}
+    if "ssm" in cache:
+        out["ssm"] = {k: ("layers",) + v
+                      for k, v in ssm_mod.SSM_CACHE_LOGICAL.items()}
+    out["lengths"] = ("batch",)
+    return out
+
+
+def cache_shardings(cfg: ModelConfig, env, cache: Dict[str, Any]):
+    """``env.sharding`` of every leaf of ``cache``, mirroring it."""
+    logical = cache_logical_axes(cfg, cache)
+
+    def walk(c, log):
+        if isinstance(c, dict):
+            return {k: walk(c[k], log[k]) for k in c}
+        return env.sharding(tuple(c.shape), log)
+
+    return walk(cache, logical)
 
 
 # ------------------------------------------------------------------- prefill
@@ -333,6 +387,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     if layers is None:
         layers = unstack_model(params, cfg)
     x = embed_tokens(params["embedding"], tokens[:, None], cfg)[:, 0]
+    x = constrain(x, "batch", "act_embed")
     if "attn" in cache:
         per_layer = {k: torch.unbind(v, 0) for k, v in cache["attn"].items()}
         L = next(iter(per_layer.values()))[0].shape[1]

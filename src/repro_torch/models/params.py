@@ -158,6 +158,30 @@ def init_from_specs(specs: SpecTree, generator: torch.Generator, *,
     return ParamTree(out, requires_grad)
 
 
+def abstract_from_specs(specs: SpecTree, dtype=torch.bfloat16
+                        ) -> Dict[str, Any]:
+    """``meta`` tensors of every leaf's shape in ``dtype``: the dry-run's
+    stand-ins (the reference's ``ShapeDtypeStruct``s); nothing is
+    allocated."""
+    return {k: (abstract_from_specs(v, dtype) if isinstance(v, dict)
+                else torch.empty(v.shape, dtype=dtype, device="meta"))
+            for k, v in specs.items()}
+
+
+def shardings_from_specs(specs: SpecTree, env) -> Dict[str, Any]:
+    """``env.sharding`` of every leaf (``distributed.sharding.Sharding``:
+    the reference's spec and the DTensor placements), mirroring the
+    tree."""
+    return {k: (shardings_from_specs(v, env) if isinstance(v, dict)
+                else env.sharding(v.shape, v.logical))
+            for k, v in specs.items()}
+
+
+def logical_axes_tree(specs: SpecTree) -> Dict[str, Any]:
+    return {k: (logical_axes_tree(v) if isinstance(v, dict) else v.logical)
+            for k, v in specs.items()}
+
+
 def from_jax(params: Mapping[str, Any], *, device="cuda",
              dtype: Optional[torch.dtype] = None,
              requires_grad: bool = False) -> ParamTree:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.ssd.ops import ssd_decode_step, ssd_scan
 from repro_torch.models.params import ParamSpec
 
@@ -93,6 +94,7 @@ def ssm_full(params, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
 
     zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    zxbcdt = constrain(zxbcdt, "batch", None, "ssm_inner")
     z, xbc_raw, dt = _split_proj(zxbcdt, s, d)
 
     init_state = None
@@ -183,3 +185,8 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, *,
             "state": torch.zeros((batch, s.num_heads(d), s.head_dim,
                                   s.d_state), dtype=torch.float32,
                                  device=device)}
+
+
+# the decode cache's logical axes (the reference's ``SSM_CACHE_LOGICAL``)
+SSM_CACHE_LOGICAL = {"conv": ("batch", None, "ssm_inner"),
+                     "state": ("batch", "ssm_heads", None, None)}

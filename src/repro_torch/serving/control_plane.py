@@ -32,7 +32,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.async_rl.buffer import RolloutQueue
+from repro_torch.async_rl.buffer import QueueClosed, RolloutQueue
 from repro_torch.async_rl.weights import WeightStore
 from repro_torch.obs.tracing import flow_end, instant, span
 from repro_torch.rollout.continuous import ContinuousBatchingEngine, Request
@@ -384,7 +384,14 @@ class ServingControlPlane:
                 pending -= {r.rid for r in self.dropped_requests}
             if not finished and self.n_inflight == 0:
                 # admission held (backpressure / staleness budget) with
-                # nothing decoding: idle-wait instead of burning max_steps
+                # nothing decoding: idle-wait instead of burning max_steps.
+                # A closed rollout queue never drains, so a hold on it
+                # never lifts: end the wait (the reference waits out
+                # 20,000 idle steps, ~100 s, then raises)
+                q = self.rollout_queue
+                if q is not None and q.closed:
+                    raise QueueClosed("rollout queue closed while admission "
+                                      "was held")
                 idle += 1
                 if idle > 20_000:
                     raise RuntimeError(

@@ -172,3 +172,32 @@ def load_checkpoint(path: str, verify: bool = True
     meta = {k: v for k, v in meta.items()
             if k not in (_CHECKSUM_KEY, _FORMAT_KEY)}
     return _unflatten(flat), meta
+
+
+def restore_sharded(path: str, shardings: Any
+                    ) -> Tuple[Any, Dict[str, Any]]:
+    """Load a checkpoint and place every leaf on its mesh sharding.
+
+    ``shardings`` mirrors the saved tree (e.g. from
+    ``models.model.param_shardings``: ``distributed.sharding.Sharding``
+    leaves). On a mesh of more than one device each rank keeps only its
+    local shard of each leaf (``DTensor.from_local`` in the sharding's
+    placements, on the mesh's device type); on a one-device mesh the leaf
+    goes whole onto the device (the card when the mesh's device type is
+    "cuda"). Leaves keep the saved dtype (bf16 leaves were written as
+    float32, which holds them exactly)."""
+    from repro_torch.distributed.sharding import is_distributed, shard_tensor
+    tree, meta = load_checkpoint(path)
+
+    def place(arr, sh):
+        if isinstance(arr, dict):
+            return {k: place(arr[k], sh[k]) for k in arr}
+        device = sh.mesh.device_type
+        if device == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if is_distributed(sh.mesh):
+            return shard_tensor(t, sh, device=device)
+        return t.to(device)
+
+    return place(tree, shardings), meta

@@ -31,6 +31,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.core.algorithms import Algorithm, LossInputs, resolve_algorithm
+from repro_torch.distributed.sharding import (
+    constrain,
+    current_env,
+    shard_tensor,
+    shard_tree,
+)
 from repro_torch.kernels.logprob import token_logprob_entropy
 from repro_torch.models import model as M
 from repro_torch.models.layers import output_head_weight
@@ -117,10 +123,12 @@ def _score_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(logp, entropy) [B, T-1] of tokens[:, 1:] and the model's
     auxiliary loss (the MoE load-balance loss; zero without MoE)."""
+    tokens = constrain(tokens, "batch", None)
     hidden, aux = M.forward_hidden(params, cfg, tokens[:, :-1])
     w = output_head_weight(params["embedding"], cfg)
     logp, entropy = token_logprob_entropy(hidden, w, tokens[:, 1:])
-    return logp, entropy, aux
+    return (constrain(logp, "batch", None), constrain(entropy, "batch", None),
+            aux)
 
 
 @torch.no_grad()
@@ -173,6 +181,11 @@ def _stack(ms: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 def _slice(t: Dict[str, torch.Tensor], i: int, n: int):
     return {k: v[i * n: (i + 1) * n] for k, v in t.items()}
+
+
+def _constrain_batch(t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: constrain(v, *(("batch",) + (None,) * (v.dim() - 1)))
+            for k, v in t.items()}
 
 
 def _trainable_views(flat_p: Dict[str, torch.Tensor]
@@ -267,6 +280,7 @@ def _train_step(params, opt, version, batch: TrainBatch,
         mbt["versions"] = versions
     if prox is not None:
         mbt["prox"] = prox
+    mbt = _constrain_batch(mbt)
 
     flat_p = flatten(params)
     kw = dict(cfg=cfg, rl=rl, algo=algo, version=version)
@@ -274,8 +288,8 @@ def _train_step(params, opt, version, batch: TrainBatch,
     # rows beyond nmb * mb_size are dropped from updates (they still count
     # toward reward/staleness telemetry above)
     for i in range(nmb):
-        loss, metrics, grads = _grads_of(flat_p, _slice(mbt, i, mb_size),
-                                         nmi, **kw)
+        loss, metrics, grads = _grads_of(
+            flat_p, _constrain_batch(_slice(mbt, i, mb_size)), nmi, **kw)
         gnorm = global_norm(grads)
         # non-finite guard on the device: grad_norm is a global reduction,
         # so one flag covers the loss and every gradient; with
@@ -345,10 +359,20 @@ class Trainer:
     def init_state(self, generator: Optional[torch.Generator] = None,
                    dtype: Optional[torch.dtype] = None,
                    device="cuda") -> TrainState:
-        """Seeded trainable params, zero Adam moments, version 0."""
+        """Seeded trainable params, zero Adam moments, version 0; placed
+        with the active ``ShardingEnv``'s logical-axis rules when one is
+        installed (DTensors on a mesh of more than one device)."""
         params = M.init_params(self.cfg, generator, device=device,
                                dtype=dtype, requires_grad=True)
-        return TrainState(params, adam_init(params),
+        opt = adam_init(params)
+        env = current_env()
+        if env is not None:
+            psh = M.param_shardings(self.cfg, env)
+            params = ParamTree(shard_tree(params, psh), requires_grad=True)
+            opt = {"m": shard_tree(opt["m"], psh),
+                   "v": shard_tree(opt["v"], psh),
+                   "t": shard_tensor(opt["t"], env.sharding((), ()))}
+        return TrainState(params, opt,
                           torch.zeros((), dtype=torch.int32,
                                       device=M.require_device(device)))
 

@@ -453,7 +453,9 @@ def test_launcher_algo_list(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--engine", "async", "--resume", "auto"],
      "--resume requires --ckpt-dir"),
-    (["--mesh", "prod"], "Distribution and launch"),
+    # `--mesh prod` is ported (its sharded dry-run:
+    # tests/test_torch_launch.py); an integer --resume without a directory
+    (["--resume", "5"], "--resume requires --ckpt-dir"),
     (["--resume", "auto"], "--resume requires --ckpt-dir"),
     (["--arch", "qwen2.5-1.5b"], "full-scale"),
 ])

@@ -907,6 +907,30 @@ def test_threaded_orchestrator_through_the_control_plane(toy):
     assert eng.allocator.n_free == eng.allocator.n_blocks
 
 
+def test_held_admission_ends_when_the_rollout_queue_closes(toy):
+    """A rollout whose admission is held by a full rollout queue (the
+    trainer has stopped popping) raises ``QueueClosed`` once the queue
+    closes, where the reference idle-waits ~100 s and then raises; the
+    worker that the loop stops takes that as its clean exit, so no slot is
+    left held."""
+    import time
+    from repro_torch.async_rl.buffer import QueueClosed, RolloutQueue
+    _, side = toy
+    queue = RolloutQueue(capacity=1, max_staleness=4)
+    queue.push(object())
+    cp = side.ControlPlane(_engine(side), side.Store(side.params, 0),
+                           side.Scheduler(side.SchedulerConfig(d_max=100)),
+                           rollout_queue=queue)
+    queue.close()
+    t0 = time.perf_counter()
+    with pytest.raises(QueueClosed):
+        cp.generate_batch(_prompt(side.cfg)[None], np.array([12]), None,
+                          max_new=3)
+    assert time.perf_counter() - t0 < 5.0
+    assert cp.n_inflight == 0
+    assert cp.engine.free_slots() == list(range(cp.engine.max_seqs))
+
+
 def test_launcher_engine_async_run_log_matches_jax_schema(tmp_path):
     """`--device cpu --arch toy-2m --steps 2 --engine async --log-jsonl`:
     step records with the JAX launcher's keys and a serving snapshot,

@@ -15,6 +15,7 @@ on the card and skip here.
 """
 import copy
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -251,10 +252,14 @@ def test_ssd_ops_check_inputs_reject_bad_operands():
     with pytest.raises(ValueError, match="contiguous"):
         sops.check_intra_chunk_inputs(xdt.transpose(0, 1).contiguous()
                                       .transpose(0, 1), la, bb, bb, 32)
-    # a device with no kernel and no plain path
+    # a meta tensor (the dry-run's) takes the plain version for shapes
+    # only; a device with no kernel and no plain path raises
+    meta = sops.ssd_intra_chunk(xdt.to("meta"), la.to("meta"),
+                                bb.to("meta"), bb.to("meta"), 32)
+    assert all(t.is_meta for t in meta)
     with pytest.raises(ValueError, match="no kernel"):
-        sops.ssd_intra_chunk(xdt.to("meta"), la.to("meta"), bb.to("meta"),
-                             bb.to("meta"), 32)
+        sops._on_card("ssd_intra_chunk", types.SimpleNamespace(
+            device=torch.device("xpu"), requires_grad=False))
 
 
 def test_ssd_scan_differentiates_on_the_cpu():
