@@ -260,7 +260,34 @@ Phases, each printing one JSON line:
              per-device argument GB, flops, collective bytes by kind and
              dominant term printed (an H100 data-sheet roofline over a
              fake mesh, not a measurement). The phase's seconds.
-18. the kernels line (all ten kernels, each with the shape its ms and
+18. examples — (a) each of the seven examples under examples/ (the
+             port's: torch_*.py) through its main() in this process at its
+             toy defaults (toy-2m in its bf16), from a scratch directory,
+             with --steps 3 where it has that flag and --sft-steps 20
+             where it has that one, train_async_rl once more with
+             --threaded: each ends normally with its summary as its last
+             line, and the counts, set to 0 just before each, show it
+             launched every kernel of its path (quickstart: the reduced
+             A-3PO forward; train_async_rl and ablate_alpha: flash, dense
+             decode, logprob and A-3PO both ways; serve_batch: flash and
+             dense decode; serve_paged, serve_control_plane and
+             loadgen_trace: paged prefill and paged decode); then
+             torch_quickstart.py as a user runs it, a subprocess with
+             PYTHONPATH=src, exit 0. (b) train_async_rl's path at
+             Qwen2.5-1.5B, full width and depth, bf16, no weight scaling,
+             on the arithmetic task's own rewards: sft_warmup (EX_SFT), the
+             base eval (n 64), then from that one base simulate_async for
+             a3po and recompute in turn (8 prompts x a group of 4, 6 new
+             tokens, staleness 2, 8 steps, eval_reward n 32 every 4 steps):
+             every SFT loss and step metric finite, the last 10 SFT losses'
+             mean under half the first 10's, the base eval strictly
+             between 0 and 1, the parameters moved in each run, a3po's mean
+             prox time below recompute's, each kernel of the path held
+             against its plain version on its last call and timed there;
+             the SFT loss curve and seconds, the evals, reward curves, prox
+             ms, step seconds, peak memory and launches printed beside the
+             card's name and power limit.
+19. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
@@ -270,7 +297,7 @@ Phases, each printing one JSON line:
              path of phases 14 and 15, each path driven with the counts
              at 0; the paged kernels' times at phase 14 (c)'s and 15's
              shapes, and rows 3-6's launches and times on the paths of
-             phases 16 and 17), then the contract line (last):
+             phases 16, 17 and 18), then the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -2419,7 +2446,7 @@ def _dense_top_key_dropped(torch, q, kc, vc, lengths):
     init stds a row of ~3000 keys attends so flatly that a reference one
     key short at its end stays within the tolerance; leaving out the key
     that matters most does not."""
-    from repro_torch.models.attention import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention
     B, H, hd = q.shape
     L, KV = kc.shape[1], kc.shape[2]
     k, v = kc.float(), vc.float()
@@ -2432,13 +2459,15 @@ def _dense_top_key_dropped(torch, q, kc, vc, lengths):
     return decode_attention(q.float(), k, v, valid & ~drop)
 
 
-def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one"):
+def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one",
+                       a3po_wrong=("last_block_dropped", "divides_by_t")):
     """Each kernel op the path called, held against its plain version on
     the inputs of its last call there (bf16 attention and logprob inputs
     against float32 plain versions, the A-3PO loss in float32), with the
     wrong references of the kernel phases (dense decode's: ``lengths -
     1``, or with ``decode_wrong="top_key_dropped"``
-    ``_dense_top_key_dropped``). Returns the records."""
+    ``_dense_top_key_dropped``; the A-3PO loss's: ``a3po_wrong``). Returns
+    the records."""
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn import ops as fops
@@ -2520,8 +2549,7 @@ def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one"):
         args = [None if a is None else a.reshape(-1).contiguous()
                 for a in args]
         kw = {k: v for k, v in kw.items() if k != "use_kernel"}
-        rec, _ = _hold_a3po_reduced(
-            torch, args, kw, ("last_block_dropped", "divides_by_t"))
+        rec, _ = _hold_a3po_reduced(torch, args, kw, a3po_wrong)
         rec["name"] = "a3po_loss"
         rec["cover"] = {"clipped": rec["values"]["clipped_tokens"],
                         "adv_nonzero": int((args[3] != 0).sum()),
@@ -2846,7 +2874,7 @@ def _paged_top_key_dropped(torch, q, pool_k, pool_v, tables, lengths):
     kernel that skipped the key that matters most. The path's rows attend
     sharply (weights x8), so a key or a page short at a row's end can move
     nothing there."""
-    from repro_torch.models.attention import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention
     S, mb = tables.shape
     bs, KV, hd = pool_k.shape[1:]
     safe = tables.clamp_min(0).long()
@@ -5142,6 +5170,282 @@ def phase_steps(torch, tmp, procs):
     return launches, times
 
 
+# ---------------------------------------------------------------- examples
+# (a) each example at its toy defaults: (example, argv, the kernels its
+# path launches, the start of its summary line: the last it prints)
+EXAMPLE_RUNS = (
+    ("torch_quickstart", (), ("a3po_loss",), "ASymPO loss (behavior-free):"),
+    ("torch_train_async_rl", ("--steps", "3", "--sft-steps", "20"),
+     TRAIN_PATH, '{"algo": '),
+    ("torch_train_async_rl", ("--steps", "3", "--sft-steps", "20",
+                              "--threaded"), TRAIN_PATH, '{"algo": '),
+    ("torch_ablate_alpha", ("--steps", "3"), TRAIN_PATH,
+     "saved experiments/torch/alpha_ablation.json"),
+    ("torch_serve_batch", (), DENSE_ROLLOUT_PATH, "TOTAL: "),
+    ("torch_serve_paged", (), SERVE_PATH, "free pages after drain: "),
+    ("torch_serve_control_plane", (), SERVE_PATH, "metrics: "),
+    ("torch_loadgen_trace", (), SERVE_PATH, "same trace, same engine"),
+)
+# (b) train_async_rl's path at Qwen2.5-1.5B full width, in its config's
+# bf16, no weight scaling, on the task's own rewards from one SFT base.
+# The reference's SFT defaults (150 steps at lr 3e-3) are toy-2m's: at this
+# width lr 3e-3 stalls at a loss of ~1.8 and scores ~0.06. The lr here was
+# chosen with chip_sft_sweep.py so that the loss falls and the base eval
+# lands strictly between 0 and 1, well inside (lr 1e-4: the loss from 37.8
+# to ~0.7 and an eval of 0.39 at n 64 after 150 steps).
+EX_ARCH = "qwen2.5-1.5b"
+EX_TASK = dict(max_operand=9, n_terms=2, prompt_len=8, seed=0)
+EX_SFT = dict(steps=150, batch=32, total_len=14, lr=1e-4)
+EX_RL = dict(group_size=4, num_minibatches=2, learning_rate=2e-4)
+EX_RL_STEPS = 8
+EX_EVAL_EVERY = 4
+EX_EVAL_N = 32
+EX_STALENESS = 2
+EX_PROMPTS = 8
+EX_MAX_NEW = 6
+
+
+def _run_example(torch, name, argv):
+    """``examples/<name>.py``'s ``main(argv)`` in this process, its
+    standard output captured. Returns (output, seconds)."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(argv))
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _example_sites(path):
+    """``_capture_ops`` sites of the kernel ops of an example's path."""
+    sites = dict(_dense_sites(train=True), **_paged_sites())
+    return {k: v for k, v in sites.items() if k in path}
+
+
+def phase_examples(torch, tmp):
+    """18 (a): each of the seven examples in this process at its toy
+    defaults on the card (train_async_rl also with --threaded), run from a
+    scratch directory: it ends normally, its last line is its summary, the
+    counts show it launched each kernel of its path, the counts set to 0
+    just before it, and each of those kernels is held against its plain
+    version on the inputs of its last call in that run; then
+    torch_quickstart.py as a user runs it, a subprocess with
+    PYTHONPATH=src, which must exit 0. Returns {path: launches}."""
+    work = tmp / "examples"
+    work.mkdir()
+    here = os.getcwd()
+    by_path, runs = {}, []
+    os.chdir(work)
+    try:
+        for name, argv, path, summary in EXAMPLE_RUNS:
+            sites = _example_sites(path)
+            with _capture_ops(torch, sites) as seen:
+                _reset_counts()
+                out, seconds = _run_example(torch, name, argv)
+                counts = _path_counts(path)
+            last = out.strip().splitlines()[-1]
+            label = name + ("_threaded" if "--threaded" in argv else "")
+            run = {"example": name, "argv": list(argv), "seconds": seconds,
+                   "summary": last, "launches": counts}
+            runs.append(run)
+            if not last.startswith(summary) or min(counts.values()) <= 0:
+                raise AssertionError(f"example {label}: {run}\n{out}")
+            if summary.startswith("{"):
+                keys = set(json.loads(last))
+                if keys != {"algo", "base_eval", "final_eval",
+                            "mean_prox_ms"}:
+                    raise AssertionError(f"example {label}: {keys}")
+            # quickstart's mask holds every token: a loss divided by T is
+            # the right one there, so it is no wrong reference
+            run["held"] = _hold_path_kernels(
+                torch, seen, "top_key_dropped",
+                ("last_block_dropped",) if name == "torch_quickstart"
+                else ("last_block_dropped", "divides_by_t"))
+            run["held"].update(_hold_paged_kernels(torch, seen))
+            if set(run["held"]) != set(sites):
+                raise AssertionError(f"example {label}: held "
+                                     f"{sorted(run['held'])} of "
+                                     f"{sorted(sites)}")
+            del seen
+            by_path[f"example_{label}"] = counts
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch_quickstart.py")],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+        sub = {"returncode": res.returncode,
+               "seconds": time.perf_counter() - t0,
+               "last_line": (res.stdout.strip().splitlines() or [""])[-1]}
+        if res.returncode != 0:
+            raise AssertionError(f"torch_quickstart.py: {sub}\n"
+                                 f"{res.stdout}\n{res.stderr}")
+        written = sorted(str(p.relative_to(work)) for p in work.rglob("*")
+                         if p.is_file())
+    finally:
+        os.chdir(here)
+    if written != ["experiments/torch/alpha_ablation.json",
+                   "experiments/torch/ckpt/toy-2m_a3po.json",
+                   "experiments/torch/ckpt/toy-2m_a3po.npz"]:
+        raise AssertionError(f"examples wrote {written}")
+    emit({"phase": "examples", "runs": runs, "quickstart_subprocess": sub,
+          "files_written": written,
+          "seconds": sum(r["seconds"] for r in runs)})
+    return by_path
+
+
+@contextlib.contextmanager
+def _sft_losses(warmup, on_step=None):
+    """Record each ``sft_update`` loss of ``warmup.sft_warmup`` (device
+    scalars, read after it), by wrapping the name it calls; after each
+    update call ``on_step(steps so far, its (params, opt, loss))``."""
+    plain = warmup.sft_update
+    losses = []
+
+    def update(*args, **kw):
+        out = plain(*args, **kw)
+        losses.append(out[2])
+        if on_step is not None:
+            on_step(len(losses), out)
+        return out
+
+    warmup.sft_update = update
+    try:
+        yield losses
+    finally:
+        warmup.sft_update = plain
+
+
+def phase_examples_full(torch, smi):
+    """18 (b): train_async_rl's path at Qwen2.5-1.5B full width and depth,
+    bf16 (the config's dtype), no weight scaling, on the arithmetic task's
+    own rewards: ``sft_warmup`` (``EX_SFT``), the base eval, then from that
+    one base ``simulate_async`` for a3po and recompute in turn
+    (``EX_RL``, 8 prompts x a group of 4, 6 new tokens, staleness 2, 8
+    steps, ``eval_reward(n=32)`` every 4 steps), each from a fresh task
+    of the same seed. Checks: every SFT loss and step metric finite; the
+    mean of the last 10 SFT losses under half that of the first 10; the
+    base eval strictly between 0 and 1; the parameters move in each run;
+    a3po's mean prox time below recompute's; each kernel of the path held
+    against its plain version on the inputs of its last call there, and
+    timed there. Returns (launches by path, times by path)."""
+    import numpy as np
+    from repro_torch.async_rl.orchestrator import simulate_async
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.algorithms import resolve_algorithm
+    from repro_torch.data.tasks import ArithmeticTask
+    from repro_torch.training import TrainState, adam_init, warmup
+
+    t_phase = time.perf_counter()
+    cfg = get_config(EX_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    with _sft_losses(warmup) as losses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base_params, _ = warmup.sft_warmup(cfg, ArithmeticTask(**EX_TASK),
+                                           device="cuda", **EX_SFT)
+        torch.cuda.synchronize()
+        sft_s = time.perf_counter() - t0
+    curve = [float(x) for x in losses]
+    sft = {"steps": len(curve), "seconds": sft_s,
+           "step_s": sft_s / max(len(curve), 1), "loss": curve,
+           "first10_mean": float(np.mean(curve[:10])),
+           "last10_mean": float(np.mean(curve[-10:])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    t0 = time.perf_counter()
+    base = warmup.eval_reward(cfg, base_params, ArithmeticTask(**EX_TASK))
+    sft["base_eval"], sft["base_eval_s"] = base, time.perf_counter() - t0
+    emit(dict({"phase": "examples_sft", "model": cfg.name,
+               "dtype": cfg.dtype, **EX_SFT, "nvidia_smi": smi}, **sft))
+    if not all(math.isfinite(x) for x in curve) \
+            or not sft["last10_mean"] < 0.5 * sft["first10_mean"] \
+            or not 0.0 < base < 1.0:
+        raise AssertionError(f"SFT warmup: {sft}")
+    torch.cuda.empty_cache()
+
+    by_path, at_paths, runs = {}, {}, {}
+    for name in ("a3po", "recompute"):
+        algo = resolve_algorithm(name)
+        rl = RLConfig(algo=algo, **EX_RL)
+        task = ArithmeticTask(**EX_TASK)
+        state = TrainState(base_params, adam_init(base_params),
+                           torch.zeros((), dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _capture_ops(torch, _dense_sites(train=True)) as seen:
+            t0 = time.perf_counter()
+            state, recs = simulate_async(
+                cfg, rl, task, algo, EX_RL_STEPS, n_prompts=EX_PROMPTS,
+                max_new_tokens=EX_MAX_NEW, staleness=EX_STALENESS, seed=0,
+                init_state=state, eval_every=EX_EVAL_EVERY,
+                eval_fn=lambda p: warmup.eval_reward(cfg, p, task,
+                                                     n=EX_EVAL_N))
+            elapsed = time.perf_counter() - t0
+        # recompute's objective is not the A-3PO loss: its path has no
+        # A-3PO kernel
+        counts = _path_counts(TRAIN_PATH if name == "a3po"
+                              else TRAIN_PATH[:4])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        recs = [dataclasses.asdict(r) for r in recs]
+        _check_records(np, recs, f"examples {name}")
+        final = warmup.eval_reward(cfg, state.params, task)
+        changed, total = _changed(torch, base_params, state.params)
+        step_s = [r["rollout_time_s"] + r["train_time_s"] for r in recs]
+        run = {"phase": "examples_rl", "algo": name, "model": cfg.name,
+               "staleness": EX_STALENESS, "steps": len(recs),
+               "elapsed_s": elapsed, "rewards": "the task's own",
+               "reward": [r["reward"] for r in recs],
+               "loss": [r["loss"] for r in recs],
+               "entropy": [r["entropy"] for r in recs],
+               "staleness_mean": [r["staleness_mean"] for r in recs],
+               "eval": {r["step"]: r["eval_reward"] for r in recs
+                        if r["eval_reward"] is not None},
+               "base_eval": base, "final_eval": final,
+               "prox_ms": [r["prox_time_s"] * 1e3 for r in recs],
+               "mean_prox_ms": float(np.mean(
+                   [r["prox_time_s"] for r in recs])) * 1e3,
+               "rollout_s": [r["rollout_time_s"] for r in recs],
+               "train_s": [r["train_time_s"] for r in recs],
+               "step_s": step_s, "mean_step_s": float(np.mean(step_s[1:])),
+               "params_changed": changed, "params_total": total,
+               "peak_mem_gb": peak, "launches": counts,
+               "nvidia_smi": smi}
+        emit(run)
+        if changed == 0 or len(run["eval"]) != EX_RL_STEPS // EX_EVAL_EVERY \
+                or min(counts.values()) <= 0:
+            raise AssertionError(f"examples {name}: {run}")
+        run["held"] = _hold_path_kernels(torch, seen, "top_key_dropped")
+        emit({"phase": "examples_rl_held", "algo": name,
+              "kernels": run["held"]})
+        at_paths[f"examples_{name}"] = _time_path_kernels(
+            torch, seen, f"examples_{name}")
+        by_path[f"examples_{name}"] = counts
+        runs[name] = run
+        del state, seen
+        torch.cuda.empty_cache()
+    if not runs["a3po"]["mean_prox_ms"] < runs["recompute"]["mean_prox_ms"]:
+        raise AssertionError(
+            f"prox ms: a3po {runs['a3po']['mean_prox_ms']}, recompute "
+            f"{runs['recompute']['mean_prox_ms']}")
+    emit({"phase": "examples_full", "model": cfg.name, "nvidia_smi": smi,
+          "base_eval": base,
+          "final_eval": {a: r["final_eval"] for a, r in runs.items()},
+          "mean_prox_ms": {a: r["mean_prox_ms"] for a, r in runs.items()},
+          "mean_step_s": {a: r["mean_step_s"] for a, r in runs.items()},
+          "peak_mem_gb": {a: r["peak_mem_gb"] for a, r in runs.items()},
+          "seconds": time.perf_counter() - t_phase})
+    del base_params
+    torch.cuda.empty_cache()
+    return by_path, at_paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -5211,6 +5515,16 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
         for name in ("llava-next-mistral-7b", "musicgen-large"):
             by_path[f"frontend_{name}"], at_paths[f"frontend_{name}"] = \
                 phase_frontend(torch, name)
+    torch.cuda.empty_cache()
+    # the examples, each path driven with the counts set to 0 just before
+    # it, then train_async_rl's path at full width
+    t_examples = time.perf_counter()
+    by_path.update(phase_examples(torch, dry_tmp))
+    full_launches, full_times = phase_examples_full(torch, smi)
+    by_path.update(full_launches)
+    at_paths.update(full_times)
+    emit({"phase": "examples_phase", "seconds":
+          time.perf_counter() - t_examples})
     torch.cuda.empty_cache()
     by_path["steps"], at_paths["steps"] = phase_steps(torch, dry_tmp,
                                                       dry_procs)

@@ -11,6 +11,8 @@ tensors on the CPU.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
@@ -21,15 +23,18 @@ def decode_attention(
     k_cache: torch.Tensor,   # [B, L, KV, hd]
     v_cache: torch.Tensor,   # [B, L, KV, hd]
     kv_valid: torch.Tensor,  # [B, L] bool
+    *,
+    softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-query attention over a dense cache: q·k in the input dtype,
-    then float32 softmax (``repro.models.attention.decode_attention``,
-    which ``models.attention`` re-exports)."""
+    then float32 softmax (``repro.models.attention.decode_attention``; the
+    port's ``models.attention.decode_attention`` takes it on the CPU)."""
     B, H, hd = q.shape
     KV = k_cache.shape[2]
     G = H // KV
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     qg = q.reshape(B, KV, G, hd)
-    s = torch.einsum("bkgd,blkd->bkgl", qg, k_cache).float() * hd ** -0.5
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k_cache).float() * scale
     s = torch.where(kv_valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgl,blkd->bkgd", p.to(v_cache.dtype), v_cache)

@@ -12,14 +12,14 @@ fake group is global state; only the dry-run paths (``launch.dryrun``,
 ``make_local_mesh`` is a mesh over the devices this process has. On one
 device (the card, or the CPU alone) it is an ``AbstractMesh`` of size 1,
 which needs no process group, so ``constrain`` and the placements are
-no-ops there, as in the reference. A ``DeviceMesh`` is built only when
+no-ops there, as in the reference; that device is the caller's, the card
+by default, and the mesh raises where no card is present and the CPU was
+not asked for. A ``DeviceMesh`` is built only when
 torch.distributed is already initialised with more than one rank.
 """
 from __future__ import annotations
 
 import math
-
-import torch
 
 from repro_torch.distributed.sharding import AbstractMesh
 
@@ -51,20 +51,22 @@ def make_production_mesh(*, multi_pod: bool = False):
     return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
-def make_local_mesh(model_parallel: int = 1):
+def make_local_mesh(model_parallel: int = 1, device="cuda"):
     """Mesh over the devices this process has: ("data", "model") of
     (n // mp, mp), mp = ``model_parallel`` where it divides n, else 1. n is
     the world size of an initialised torch.distributed group of more than
     one rank (a ``DeviceMesh`` on the backend's device: gloo's the CPU,
-    nccl's the card); otherwise one device (an ``AbstractMesh`` of size 1:
-    the card where there is one, else the CPU)."""
+    nccl's the card); otherwise one device, ``device`` (an ``AbstractMesh``
+    of size 1): the card unless the caller asks for the CPU, and an error
+    where the card is asked for but absent."""
     import torch.distributed as dist
     n = dist.get_world_size() if (dist.is_available()
                                   and dist.is_initialized()) else 1
     mp = model_parallel if n % model_parallel == 0 else 1
     if n == 1:
+        from repro_torch.models.model import require_device
         return AbstractMesh((1, 1), ("data", "model"),
-                            "cuda" if torch.cuda.is_available() else "cpu")
+                            require_device(device).type)
     from torch.distributed.device_mesh import init_device_mesh
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (n // mp, mp),

@@ -1,11 +1,14 @@
 """GQA/MHA attention: whole-sequence causal attention, single-query
 decode attention and the dense decode cache (``repro.models.attention``).
 
-``chunked_causal_attention`` and ``decode_attention`` (kept beside its
-kernel in ``kernels/decode_attn/ref.py``) are plain PyTorch: the training
-forward attends through the first, and they are the references the kernels and the serving engines are held against. The
-rollout engine's dense prefill attends through the flash attention kernel
-op (``attention_full(..., flash=True)``) and its decode through the dense
+``chunked_causal_attention`` is plain PyTorch: the training forward
+attends through it, and it is a reference the kernels and the serving
+engines are held against. ``decode_attention`` (the reference's masked
+single-query attention) dispatches as ``attention_decode`` does: the dense
+decode kernel op on the card, its plain version
+(``kernels/decode_attn/ref.py``) on the CPU. The rollout engine's dense
+prefill attends through the flash attention kernel op
+(``attention_full(..., flash=True)``) and its decode through the dense
 decode kernel op (``attention_decode``). No fused library attention is
 called.
 """
@@ -17,9 +20,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, current_env, write_rows
+from repro_torch.kernels.decode_attn import ref as decode_ref
 from repro_torch.kernels.decode_attn.ops import decode_attention_op
-# the plain single-query attention, under the reference's name here
-from repro_torch.kernels.decode_attn.ref import decode_attention  # noqa: F401
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models.layers import (
     apply_rope,
@@ -97,6 +99,35 @@ def chunked_causal_attention(
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
         out.append(o.reshape(B, -1, H, dv).to(q.dtype))
     return torch.cat(out, dim=1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_valid: torch.Tensor, *,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a dense cache. q [B,H,hd] (rope
+    applied); k/v_cache [B,L,KV,hd]; kv_valid [B,L] bool -> [B,H,hd].
+
+    On the CPU this is the plain version. On the card it is the dense
+    decode kernel op, as ``attention_decode`` calls it, and its contract
+    narrows: the kernel masks keys from a length on, so ``kv_valid`` must
+    hold a prefix of each row (checked on the host, which reads the mask
+    and so synchronises: the engines call the op with lengths instead),
+    else it raises; and a ``softmax_scale`` other than hd^-0.5 is folded
+    into q in q's dtype, where the plain version scales q·k in float32, so
+    in bf16 the two differ by q's rounding.
+    """
+    if q.device.type in ("cpu", "meta"):
+        return decode_ref.decode_attention(q, k_cache, v_cache, kv_valid,
+                                           softmax_scale=softmax_scale)
+    lengths = kv_valid.sum(-1, dtype=torch.int32)
+    keys = torch.arange(kv_valid.shape[1], device=kv_valid.device)
+    if not torch.equal(kv_valid, keys[None, :] < lengths[:, None]):
+        raise ValueError("decode_attention: on the card kv_valid must be a "
+                         "prefix of each row (the kernel reads lengths)")
+    hd = q.shape[-1]
+    if softmax_scale is not None and softmax_scale != hd ** -0.5:
+        q = q * (softmax_scale * hd ** 0.5)
+    return decode_attention_op(q.contiguous(), k_cache, v_cache, lengths)
 
 
 # --------------------------------------------------------------------- cache

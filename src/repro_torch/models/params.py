@@ -54,6 +54,11 @@ def walk(tree: Mapping[str, Any], path=()) -> Iterator[Tuple[Tuple[str, ...], An
             yield path + (k,), v
 
 
+def count_params(specs: SpecTree) -> int:
+    """Number of scalars a spec tree declares."""
+    return sum(math.prod(s.shape) for _, s in walk(specs))
+
+
 def stack_specs(spec: SpecTree, n: int, axis_name: str = "layers") -> SpecTree:
     """Prepend a stacked (layer) axis to every leaf of a block spec tree."""
     return {k: (stack_specs(v, n, axis_name) if isinstance(v, dict)

@@ -4,7 +4,8 @@ sequence and the O(1) recurrent decode step.
 The whole-sequence block runs the chunked SSD scan of
 ``kernels.ssd.ops.ssd_scan`` (the intra-chunk CUDA kernel on the card).
 That differs from the reference on purpose: its ``ssm_full`` runs the jnp
-``ssd_chunked`` and reaches no Pallas kernel. The decode step runs
+``ssd_chunked`` and reaches no Pallas kernel; the port's ``ssd_chunked``
+is that scan. The decode step runs
 ``ssd_decode_step`` (the decode CUDA kernel on the card) and updates the
 cache in place.
 
@@ -69,6 +70,24 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     yf = (y * F.silu(z)).float()
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, the reference's public name: it calls
+    ``kernels.ssd.ops.ssd_scan``, the scan ``ssm_full`` runs (the
+    intra-chunk kernel on the card).
+
+    x [B,S,nh,hd] (conv'd, head-split), dt [B,S,nh] (softplus'd), b, c
+    [B,S,ds] (one group) -> (y [B,S,nh,hd], final state [B,nh,hd,ds]
+    float32). A sequence longer than ``chunk`` that it does not divide is
+    padded to whole chunks, where the reference takes one chunk of S: the
+    same values (``ssd_scan``).
+    """
+    return ssd_scan(x, dt, a_log, b, c, chunk=chunk,
+                    initial_state=initial_state)
 
 
 def ssm_full(params, x: torch.Tensor, cfg: ModelConfig,

@@ -39,6 +39,7 @@ from repro_torch.obs.tracing import (
     get_tracer,
     install_tracer,
     span,
+    trace_span,
 )
 
 __all__ = [
@@ -58,4 +59,5 @@ __all__ = [
     "install_tracer",
     "span",
     "step_record_dict",
+    "trace_span",
 ]

@@ -26,6 +26,7 @@ otherwise.
 """
 from __future__ import annotations
 
+import functools
 import json
 import threading
 import time
@@ -288,6 +289,23 @@ def step_annotation(step: int):
         return _NOOP_ANNOTATION
     import torch
     return torch.profiler.record_function(f"train_step_{step}")
+
+
+def trace_span(name: Optional[str] = None, **attrs):
+    """Decorator form of ``span`` (span name defaults to the function's
+    qualified name)."""
+    def deco(fn):
+        sp_name = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            t = _TRACER
+            if t is None:
+                return fn(*a, **kw)
+            with t.span(sp_name, **attrs):
+                return fn(*a, **kw)
+        return wrapped
+    return deco
 
 
 # ----------------------------------------------------- phase classification

@@ -117,6 +117,59 @@ def init_paged_cache(cfg: ModelConfig, *, n_blocks: int, block_size: int,
     )
 
 
+# -------------------------------------------------------------- device ops
+def write_token(state: PagedCacheState, layer: int, k: torch.Tensor,
+                v: torch.Tensor, slot_ids: torch.Tensor) -> PagedCacheState:
+    """Write one token's K/V for active slots, in place.
+
+    k, v: [B_active, KV, hd]; slot_ids: [B_active] rows of block_tables.
+    The target block/offset come from seq_lens (position = current len).
+    Unmapped (-1) positions are routed to the scratch block, the last pool
+    block, which the engine reserves as a write sink, never to live block
+    0: a bookkeeping bug then wastes a write instead of corrupting KV.
+    """
+    slot_ids = torch.as_tensor(slot_ids, device=state.seq_lens.device).long()
+    bs = state.block_size
+    lens = state.seq_lens[slot_ids].long()
+    blocks = state.block_tables[slot_ids, lens // bs].long()
+    unmapped = blocks < 0
+    blocks = torch.where(unmapped, state.pool_k.shape[1] - 1, blocks)
+    offset = torch.where(unmapped, 0, lens % bs)
+    state.pool_k[layer, blocks, offset] = k.to(state.pool_k.dtype)
+    state.pool_v[layer, blocks, offset] = v.to(state.pool_v.dtype)
+    return state
+
+
+def gather_kv(state: PagedCacheState, layer: int, slot_ids: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-slot K/V views [B, max_blocks*bs, KV, hd] and validity [B,
+    max_blocks*bs]: a gather over the block pool (the plain form of the
+    paged kernels' block-table walk). Tokens in unmapped blocks are never
+    valid: the length bound covers them."""
+    slot_ids = torch.as_tensor(slot_ids, device=state.seq_lens.device).long()
+    bs = state.block_size
+    tables = state.block_tables[slot_ids].long()     # [B, max_blocks]
+    safe = tables.clamp_min(0)
+    k = state.pool_k[layer][safe]                    # [B, mb, bs, KV, hd]
+    v = state.pool_v[layer][safe]
+    B, mb = tables.shape
+    k = k.reshape(B, mb * bs, *k.shape[3:])
+    v = v.reshape(B, mb * bs, *v.shape[3:])
+    lens = state.seq_lens[slot_ids]
+    valid = (torch.arange(mb * bs, device=lens.device)[None, :]
+             < lens[:, None])
+    return k, v, valid
+
+
+def bump_lens(state: PagedCacheState, slot_ids: torch.Tensor
+              ) -> PagedCacheState:
+    """Advance the lengths of ``slot_ids`` by one token, in place."""
+    slot_ids = torch.as_tensor(slot_ids, device=state.seq_lens.device).long()
+    state.seq_lens.index_add_(0, slot_ids, torch.ones_like(
+        slot_ids, dtype=state.seq_lens.dtype))
+    return state
+
+
 # ------------------------------------------------------------ SSM state pool
 @dataclasses.dataclass
 class SSMStateCache:

@@ -13,3 +13,4 @@ from repro_torch.training.trainer import (  # noqa: F401
     score_tokens,
     sft_update,
 )
+from repro_torch.training.warmup import eval_reward, sft_warmup  # noqa: F401

@@ -178,8 +178,23 @@ def test_sharding_env_divisibility_fallback():
 def test_constrain_is_the_identity_off_mesh():
     x = torch.ones(4, 4)
     assert constrain(x, "batch", None) is x
-    with use_sharding(ShardingEnv(make_local_mesh())):
+    with use_sharding(ShardingEnv(make_local_mesh(device="cpu"))):
         assert constrain(x, "batch", None) is x
+
+
+def test_local_mesh_raises_without_a_card_unless_the_cpu_is_asked(
+        monkeypatch):
+    """The one-device mesh lies on the caller's device: the card by
+    default, which raises where there is none; the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_local_mesh(device="cuda")
+    mesh = make_local_mesh(device="cpu")
+    assert mesh.device_type == "cpu" and mesh.size == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert make_local_mesh().device_type == "cuda"
 
 
 # ------------------------------------------------------------------- census
@@ -274,7 +289,7 @@ def test_restore_sharded_on_the_local_mesh(tmp_path):
     cfg = dataclasses.replace(get_config("toy-2m"), dtype="float32")
     state = Trainer(cfg).init_state(torch.Generator().manual_seed(0),
                                     device="cpu")
-    env = ShardingEnv(make_local_mesh())
+    env = ShardingEnv(make_local_mesh(device="cpu"))
     path = str(tmp_path / "ckpt")
     save_checkpoint(path, state.params, {"v": 1})
     restored, meta = restore_sharded(path, M.param_shardings(cfg, env))
@@ -307,7 +322,7 @@ _GLOO = textwrap.dedent("""
         from repro_torch.training.checkpoints import (restore_sharded,
                                                       save_checkpoint)
         out = {"rank": rank}
-        mesh = make_local_mesh(model_parallel=4)
+        mesh = make_local_mesh(model_parallel=4, device="cpu")
         out["mesh"] = list(mesh.mesh.shape)
         # sharded restore of toy-2m
         cfg = dataclasses.replace(get_config("toy-2m"), dtype="float32")

@@ -329,6 +329,35 @@ def test_port_imports_no_jax_and_no_reference_package():
                 assert top not in ("jax", "jaxlib", "repro"), (path, line)
 
 
+@pytest.mark.parametrize("example", sorted(
+    p.name for p in (ROOT / "examples").glob("torch_*.py")))
+def test_example_imports_no_jax_and_no_reference_package(example):
+    """Each ``examples/torch_*.py``, imported in a fresh interpreter (its
+    ``main`` not run), loads neither jax nor any module of ``repro``, and
+    its imports name only torch, numpy, ``repro_torch`` and the standard
+    library."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', "
+        f"{str(ROOT / 'examples' / example)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    for line in (ROOT / "examples" / example).read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            top = words[1].split(".")[0]
+            assert top in ("argparse", "dataclasses", "json", "os", "time",
+                           "numpy", "torch", "repro_torch"), (example, line)
+
+
 # --------------------------------------------------------------- on a card
 @pytest.fixture
 def cuda_device():
