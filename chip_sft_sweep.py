@@ -1,16 +1,26 @@
-"""Sweep the SFT warmup's learning rate at Qwen2.5-1.5B full width on one
-NVIDIA GPU: how the loss falls and where the held-out greedy eval lands
-after a given number of steps. It chose the steps and lr of
-``chip_smoke.py``'s ``EX_SFT`` (phase 18 (b)).
+"""Sweep the SFT warmup's or the RL loop's learning rate at Qwen2.5-1.5B
+full width on one NVIDIA GPU. The SFT mode chose the steps and lr of
+``chip_smoke.py``'s ``EX_SFT``, the RL mode the lr of its ``EX_RL``
+(phase 18 (b)).
 
     python3 chip_sft_sweep.py [--lrs 3e-5,1e-4,3e-4,3e-3] [--steps 150]
+    python3 chip_sft_sweep.py --mode rl [--lrs 2e-4,5e-5,1e-5,3e-6,1e-6]
 
-For each lr it runs ``repro_torch.training.warmup.sft_warmup`` (bf16, the
-config's dtype; seed 0; batch 32, 14 tokens; the arithmetic task of
-phase 18, seed 0), and after the steps in ``--eval-at`` scores the
+SFT mode: for each lr it runs ``repro_torch.training.warmup.sft_warmup``
+(bf16, the config's dtype; seed 0; batch 32, 14 tokens; the arithmetic
+task of phase 18, seed 0), and after the steps in ``--eval-at`` scores the
 parameters with ``eval_reward`` (n 64, outside the step timing). It prints
-the card's name and power limit, then one JSON line per lr: the loss every
-5 steps, the evals, the seconds per step and the peak memory. It exits 2
+one JSON line per lr: the loss every 5 steps, the evals, the seconds per
+step and the peak memory.
+
+RL mode: it warms one base with ``EX_SFT`` and scores it (n 64), then for
+each lr runs phase 18 (b)'s loop (``chip_smoke._rl_from_base``: a3po, then
+recompute, each from that base) and prints one JSON line per lr and
+algorithm: reward and entropy per step, the evals (n 32 every 4 steps,
+final n 64) and why the run collapsed by ``chip_smoke._collapse`` (empty
+when it did not); last, the largest lr at which neither run collapsed.
+
+Both modes print the card's name and power limit first, and exit 2
 without CUDA.
 """
 from __future__ import annotations
@@ -29,8 +39,11 @@ TASK = dict(max_operand=9, n_terms=2, prompt_len=8, seed=0)
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--mode", choices=("sft", "rl"), default="sft")
     p.add_argument("--arch", default="qwen2.5-1.5b")
-    p.add_argument("--lrs", default="3e-5,1e-4,3e-4,3e-3")
+    p.add_argument("--lrs", default=None,
+                   help="default 3e-5,1e-4,3e-4,3e-3 (sft), "
+                   "2e-4,5e-5,1e-5,3e-6,1e-6 (rl)")
     p.add_argument("--steps", type=int, default=150)
     p.add_argument("--eval-at", default="10,20,40,60,80,100,150")
     args = p.parse_args(argv)
@@ -52,8 +65,12 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip(), flush=True)
     _build.build()
     cfg = get_config(args.arch)
+    if args.mode == "rl":
+        return _rl_sweep(torch, cfg, [float(x) for x in (
+            args.lrs or "2e-4,5e-5,1e-5,3e-6,1e-6").split(",")])
     at = {int(x) for x in args.eval_at.split(",")}
-    for lr in (float(x) for x in args.lrs.split(",")):
+    for lr in (float(x) for x in (args.lrs
+                                  or "3e-5,1e-4,3e-4,3e-3").split(",")):
         evals, eval_s = {}, [0.0]
 
         def on_step(n, out):
@@ -81,6 +98,46 @@ def main(argv=None) -> int:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
             flush=True)
         torch.cuda.empty_cache()
+    return 0
+
+
+def _rl_sweep(torch, cfg, lrs) -> int:
+    from repro_torch.data.tasks import ArithmeticTask
+    from repro_torch.training import warmup
+
+    from chip_smoke import EX_SFT, EX_TASK, _collapse, _rl_from_base
+
+    t0 = time.perf_counter()
+    base_params, _ = warmup.sft_warmup(cfg, ArithmeticTask(**EX_TASK),
+                                       device="cuda", **EX_SFT)
+    base = warmup.eval_reward(cfg, base_params, ArithmeticTask(**EX_TASK))
+    print(json.dumps({"arch": cfg.name, "dtype": cfg.dtype, "sft": EX_SFT,
+                      "base_eval_n64": base,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    held = []
+    for lr in lrs:
+        whys = []
+        for name in ("a3po", "recompute"):
+            state, recs, seconds = _rl_from_base(torch, cfg, base_params,
+                                                 name, lr)
+            final = warmup.eval_reward(cfg, state.params,
+                                       ArithmeticTask(**EX_TASK))
+            entropy = [r["entropy"] for r in recs]
+            why = _collapse(entropy, final, base)
+            whys.append(why)
+            print(json.dumps({
+                "lr": lr, "algo": name, "seconds": seconds,
+                "reward": [r["reward"] for r in recs], "entropy": entropy,
+                "eval_n32": {r["step"]: r["eval_reward"] for r in recs
+                             if r["eval_reward"] is not None},
+                "base_eval_n64": base, "final_eval_n64": final,
+                "collapse": why}), flush=True)
+            del state
+            torch.cuda.empty_cache()
+        if not any(whys):
+            held.append(lr)
+    print(json.dumps({"largest_lr_without_collapse":
+                      max(held) if held else None}), flush=True)
     return 0
 
 

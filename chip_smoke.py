@@ -286,8 +286,33 @@ Phases, each printing one JSON line:
              against its plain version on its last call and timed there;
              the SFT loss curve and seconds, the evals, reward curves, prox
              ms, step seconds, peak memory and launches printed beside the
-             card's name and power limit.
-19. the kernels line (all ten kernels, each with the shape its ms and
+             card's name and power limit. The RL lr (EX_RL) was chosen with
+             `chip_sft_sweep.py --mode rl`; neither run may collapse: its
+             last step's entropy at least half of step 0's and its final
+             eval (n 64) at most 0.15 below the base eval.
+19. dense prefill — the paged engine's prefill_mode="dense" against its
+             chunk lane, Qwen2.5-1.5B full width and depth, bf16, layer
+             weights x8, through the serving control plane (no radix
+             cache, prefill budget 2) on bench_prefill's mix scaled to the
+             model (12 prompts of 32-64 tokens, 2 of 1024 spread through
+             the queue; 16 greedy tokens; 4 slots, pages of 16, chunks of
+             256): each mode once with its kernels captured and its
+             launches counted (the counts at 0 just before), then timed in
+             turn (dense, chunked, chunked, dense): wall s, tokens/s, TTFT
+             p50 / p99, prefill shapes and launches; every token and logp
+             of both held against forward_logits. Then a dense-mode radix
+             wave: 4 prompts, then 4 x 4 members sharing all but their
+             last 8 tokens with one of them, so each member's tail runs
+             through _prefill_suffix and forks the shared page, a
+             pure-stamp publish mid-wave: hits, forks, stamps and tokens
+             checked, the pool drained. In float32 at 4 layers, dense and
+             chunked give the same greedy tokens and each prompt's
+             next-token logits within 1e-4. Flash (its last whole-prompt
+             prefill), paged decode (the decode lane's and the suffix's
+             one-active-slot step) and paged prefill (the chunk lane's)
+             held on their last calls, each wrong reference failing, and
+             timed there.
+20. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
@@ -297,7 +322,8 @@ Phases, each printing one JSON line:
              path of phases 14 and 15, each path driven with the counts
              at 0; the paged kernels' times at phase 14 (c)'s and 15's
              shapes, and rows 3-6's launches and times on the paths of
-             phases 16, 17 and 18), then the contract line (last):
+             phases 16, 17 and 18, rows 1, 2 and 4's on phase 19's), then
+             the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises, so the script exits non-zero without a last line.
@@ -5192,17 +5218,24 @@ EXAMPLE_RUNS = (
 # width lr 3e-3 stalls at a loss of ~1.8 and scores ~0.06. The lr here was
 # chosen with chip_sft_sweep.py so that the loss falls and the base eval
 # lands strictly between 0 and 1, well inside (lr 1e-4: the loss from 37.8
-# to ~0.7 and an eval of 0.39 at n 64 after 150 steps).
+# to ~0.7 and an eval of 0.39 at n 64 after 150 steps). The reference's RL
+# lr 2e-4 collapses both algorithms at this width within 3 steps; the RL lr
+# is the largest that `chip_sft_sweep.py --mode rl` found collapsing
+# neither (2e-4 and 5e-5 collapse; 1e-5, 3e-6 and 1e-6 do not).
 EX_ARCH = "qwen2.5-1.5b"
 EX_TASK = dict(max_operand=9, n_terms=2, prompt_len=8, seed=0)
 EX_SFT = dict(steps=150, batch=32, total_len=14, lr=1e-4)
-EX_RL = dict(group_size=4, num_minibatches=2, learning_rate=2e-4)
+EX_RL = dict(group_size=4, num_minibatches=2, learning_rate=1e-5)
 EX_RL_STEPS = 8
 EX_EVAL_EVERY = 4
 EX_EVAL_N = 32
 EX_STALENESS = 2
 EX_PROMPTS = 8
 EX_MAX_NEW = 6
+# a run collapses when its last step's entropy falls below this share of
+# step 0's, or its final eval (n 64) more than this below the base eval
+COLLAPSE_ENTROPY_SHARE = 0.5
+COLLAPSE_EVAL_DROP = 0.15
 
 
 def _run_example(torch, name, argv):
@@ -5321,26 +5354,62 @@ def _sft_losses(warmup, on_step=None):
         warmup.sft_update = plain
 
 
+def _rl_from_base(torch, cfg, base_params, name, lr):
+    """18 (b)'s loop from ``base_params``: ``simulate_async`` of ``name``
+    at ``lr`` and ``EX_RL``'s other settings (8 prompts x a group of 4, 6
+    new tokens, staleness 2, 8 steps, ``eval_reward(n=32)`` every 4
+    steps), from a fresh task of ``EX_TASK``'s seed. Returns (final
+    state, step records as dicts, seconds)."""
+    from repro_torch.async_rl.orchestrator import simulate_async
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.algorithms import resolve_algorithm
+    from repro_torch.data.tasks import ArithmeticTask
+    from repro_torch.training import TrainState, adam_init, warmup
+    algo = resolve_algorithm(name)
+    rl = RLConfig(algo=algo, **dict(EX_RL, learning_rate=lr))
+    task = ArithmeticTask(**EX_TASK)
+    state = TrainState(base_params, adam_init(base_params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, recs = simulate_async(
+        cfg, rl, task, algo, EX_RL_STEPS, n_prompts=EX_PROMPTS,
+        max_new_tokens=EX_MAX_NEW, staleness=EX_STALENESS, seed=0,
+        init_state=state, eval_every=EX_EVAL_EVERY,
+        eval_fn=lambda p: warmup.eval_reward(cfg, p, task, n=EX_EVAL_N))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return state, [dataclasses.asdict(r) for r in recs], elapsed
+
+
+def _collapse(entropy, final_eval, base_eval):
+    """Why a run collapsed (empty when it did not): its last step's
+    entropy under ``COLLAPSE_ENTROPY_SHARE`` of step 0's, or its final
+    eval more than ``COLLAPSE_EVAL_DROP`` below the base eval."""
+    why = []
+    if not entropy[-1] >= COLLAPSE_ENTROPY_SHARE * entropy[0]:
+        why.append(f"entropy {entropy[0]} -> {entropy[-1]}")
+    if not final_eval >= base_eval - COLLAPSE_EVAL_DROP:
+        why.append(f"eval {base_eval} -> {final_eval}")
+    return why
+
+
 def phase_examples_full(torch, smi):
     """18 (b): train_async_rl's path at Qwen2.5-1.5B full width and depth,
     bf16 (the config's dtype), no weight scaling, on the arithmetic task's
     own rewards: ``sft_warmup`` (``EX_SFT``), the base eval, then from that
-    one base ``simulate_async`` for a3po and recompute in turn
-    (``EX_RL``, 8 prompts x a group of 4, 6 new tokens, staleness 2, 8
-    steps, ``eval_reward(n=32)`` every 4 steps), each from a fresh task
-    of the same seed. Checks: every SFT loss and step metric finite; the
-    mean of the last 10 SFT losses under half that of the first 10; the
-    base eval strictly between 0 and 1; the parameters move in each run;
-    a3po's mean prox time below recompute's; each kernel of the path held
-    against its plain version on the inputs of its last call there, and
-    timed there. Returns (launches by path, times by path)."""
+    one base ``_rl_from_base`` for a3po and recompute in turn. Checks:
+    every SFT loss and step metric finite; the mean of the last 10 SFT
+    losses under half that of the first 10; the base eval strictly
+    between 0 and 1; the parameters move in each run; neither run
+    collapses (``_collapse``); a3po's mean prox time below recompute's;
+    each kernel of the path held against its plain version on the inputs
+    of its last call there, and timed there. Returns (launches by path,
+    times by path)."""
     import numpy as np
-    from repro_torch.async_rl.orchestrator import simulate_async
-    from repro_torch.configs.base import RLConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.algorithms import resolve_algorithm
     from repro_torch.data.tasks import ArithmeticTask
-    from repro_torch.training import TrainState, adam_init, warmup
+    from repro_torch.training import warmup
 
     t_phase = time.perf_counter()
     cfg = get_config(EX_ARCH)
@@ -5371,31 +5440,20 @@ def phase_examples_full(torch, smi):
 
     by_path, at_paths, runs = {}, {}, {}
     for name in ("a3po", "recompute"):
-        algo = resolve_algorithm(name)
-        rl = RLConfig(algo=algo, **EX_RL)
-        task = ArithmeticTask(**EX_TASK)
-        state = TrainState(base_params, adam_init(base_params),
-                           torch.zeros((), dtype=torch.int32, device="cuda"))
         torch.cuda.synchronize()
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         with _capture_ops(torch, _dense_sites(train=True)) as seen:
-            t0 = time.perf_counter()
-            state, recs = simulate_async(
-                cfg, rl, task, algo, EX_RL_STEPS, n_prompts=EX_PROMPTS,
-                max_new_tokens=EX_MAX_NEW, staleness=EX_STALENESS, seed=0,
-                init_state=state, eval_every=EX_EVAL_EVERY,
-                eval_fn=lambda p: warmup.eval_reward(cfg, p, task,
-                                                     n=EX_EVAL_N))
-            elapsed = time.perf_counter() - t0
+            state, recs, elapsed = _rl_from_base(
+                torch, cfg, base_params, name, EX_RL["learning_rate"])
         # recompute's objective is not the A-3PO loss: its path has no
         # A-3PO kernel
         counts = _path_counts(TRAIN_PATH if name == "a3po"
                               else TRAIN_PATH[:4])
         peak = torch.cuda.max_memory_allocated() / 1e9
-        recs = [dataclasses.asdict(r) for r in recs]
         _check_records(np, recs, f"examples {name}")
-        final = warmup.eval_reward(cfg, state.params, task)
+        final = warmup.eval_reward(cfg, state.params,
+                                   ArithmeticTask(**EX_TASK))
         changed, total = _changed(torch, base_params, state.params)
         step_s = [r["rollout_time_s"] + r["train_time_s"] for r in recs]
         run = {"phase": "examples_rl", "algo": name, "model": cfg.name,
@@ -5416,10 +5474,15 @@ def phase_examples_full(torch, smi):
                "step_s": step_s, "mean_step_s": float(np.mean(step_s[1:])),
                "params_changed": changed, "params_total": total,
                "peak_mem_gb": peak, "launches": counts,
+               "learning_rate": EX_RL["learning_rate"],
+               "collapse": _collapse([r["entropy"] for r in recs], final,
+                                     base),
+               "collapse_limits": {"entropy_share": COLLAPSE_ENTROPY_SHARE,
+                                   "eval_drop": COLLAPSE_EVAL_DROP},
                "nvidia_smi": smi}
         emit(run)
         if changed == 0 or len(run["eval"]) != EX_RL_STEPS // EX_EVAL_EVERY \
-                or min(counts.values()) <= 0:
+                or min(counts.values()) <= 0 or run["collapse"]:
             raise AssertionError(f"examples {name}: {run}")
         run["held"] = _hold_path_kernels(torch, seen, "top_key_dropped")
         emit({"phase": "examples_rl_held", "algo": name,
@@ -5443,6 +5506,280 @@ def phase_examples_full(torch, smi):
           "seconds": time.perf_counter() - t_phase})
     del base_params
     torch.cuda.empty_cache()
+    return by_path, at_paths
+
+
+# ------------------------------------------------------ 19: dense prefill
+# bench_prefill's mix (benchmarks/bench_prefill.py:46) at the model's scale:
+# its 12 short prompts (16 tokens at toy scale) and 2 long ones (96) become
+# 32-64 and 1024 tokens, its 16 new tokens, 4 slots, budget 2 and no radix
+# cache stay; pages of 16 and chunks of 256 as the other Qwen phases.
+DP_MIX = dict(n_short=12, n_long=2, short_len=64, long_len=1024)
+DP_MAX_NEW = 16
+DP_ENGINE_KW = dict(max_seqs=4, block_size=16, n_blocks=1024,
+                    max_blocks_per_seq=72, prefill_chunk=256, greedy=True)
+DP_PREFILL_BUDGET = 2
+# the radix wave's first prompts; a member keeps all but the last DP_TAIL
+# tokens of one (within the dense rule's max(2 * 16, (P - 1) // 2)), and
+# (P - DP_TAIL) % 16 != 0, so its first tail token writes into a shared page
+DP_WAVE_LENS = (96, 161, 230, 307)
+DP_TAIL = 8
+DP_F32_LAYERS = 4
+DP_F32_LOGITS_TOL = 1e-4
+DP_MODES = ("dense", "chunked")
+
+
+def _dp_prompts(cfg, n_short, n_long, short_len, long_len, seed=0):
+    """``bench_prefill._workload``: the short prompts with the long ones
+    spread through the queue."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shorts = [rng.integers(4, cfg.vocab_size, size=int(rng.integers(
+        short_len // 2, short_len + 1))).astype(np.int32)
+        for _ in range(n_short)]
+    longs = [rng.integers(4, cfg.vocab_size, size=long_len).astype(np.int32)
+             for _ in range(n_long)]
+    prompts = list(shorts)
+    stride = max(len(prompts) // (n_long + 1), 1)
+    for i, p in enumerate(longs):
+        prompts.insert(stride * (i + 1), p)
+    return prompts
+
+
+def _dp_plane(cfg, params, mode, cache):
+    from repro_torch.async_rl.weights import WeightStore
+    from repro_torch.rollout.continuous import ContinuousBatchingEngine
+    from repro_torch.serving import (
+        AdmissionScheduler,
+        SchedulerConfig,
+        ServingControlPlane,
+    )
+    eng = ContinuousBatchingEngine(cfg, device="cuda", prefill_mode=mode,
+                                   **DP_ENGINE_KW)
+    return ServingControlPlane(
+        eng, WeightStore(params, 0),
+        AdmissionScheduler(SchedulerConfig(d_max=1_000)),
+        use_prefix_cache=cache, prefill_budget=DP_PREFILL_BUDGET)
+
+
+def _dp_wave(torch, cp, prompts, on_step=None):
+    """Submit ``prompts`` (TTFT counts the queueing) and step the plane
+    until all finished. Returns (requests by rid, record)."""
+    import numpy as np
+    eng = cp.engine
+    before = (eng.prefill_launches, eng.prefill_chunk_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = {cp.submit(p, max_new=DP_MAX_NEW) for p in prompts}
+    done, steps = [], 0
+    while len(done) < len(prompts):
+        done += cp.step()
+        steps += 1
+        if on_step is not None:
+            on_step(steps)
+        if steps > 10_000:
+            raise AssertionError("dense prefill: the wave did not finish")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if {r.rid for r in done} != rids:
+        raise AssertionError("dense prefill: other requests finished")
+    ttft = np.array([r.t_first_token - r.t_submit for r in done])
+    tokens = sum(len(r.generated) for r in done)
+    return sorted(done, key=lambda r: r.rid), {
+        "mode": eng.prefill_mode, "seconds": seconds, "steps": steps,
+        "tokens": tokens, "tokens_per_s": tokens / seconds,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+        "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+        "ttft_max_ms": float(ttft.max()) * 1e3,
+        "prefill_compiles": eng.prefill_compiles,
+        "prefill_shapes": sorted(map(str, eng._prefill_shapes)),
+        "prefill_launches": eng.prefill_launches - before[0],
+        "prefill_chunk_tokens": eng.prefill_chunk_tokens - before[1]}
+
+
+def phase_dense_prefill(torch, smi):
+    """19: see the module docstring. Returns (launches by path, times by
+    path)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.rollout.continuous import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-1.5b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16)
+    _scale_blocks(torch, params, SCALE)
+    prompts = _dp_prompts(cfg, **DP_MIX)
+    L = cfg.num_layers
+    paths = {"dense": ("flash_attention", "paged_decode_attention"),
+             "chunked": ("paged_prefill_attention", "paged_decode_attention")}
+    by_path, at_paths, seen, runs, first = {}, {}, {}, {}, {}
+    # (a) each mode once with its kernels captured and its launches counted
+    for mode in DP_MODES:
+        cp = _dp_plane(cfg, params, mode, False)
+        with _capture_ops(torch, dict(_dense_sites(),
+                                      **_paged_sites())) as got:
+            _reset_counts()
+            done, rec = _dp_wave(torch, cp, prompts)
+            counts = _all_counts()
+        seen[mode] = got
+        by_path[f"dense_prefill_{mode}"] = {k: counts[k]
+                                            for k in paths[mode]}
+        rec["launches"] = {k: counts[k] for k in (
+            "flash_attention", "paged_decode_attention",
+            "paged_prefill_attention", "decode_attention")}
+        rec["reference_checks"] = _reference_checks(
+            torch, M, cfg, params, done, ENGINE_GAP_TOL, ENGINE_LOGP_TOL)
+        runs[mode] = {"counted": rec, "timed": []}
+        first[mode] = {r.rid: list(r.generated) for r in done}
+        other = "paged_prefill_attention" if mode == "dense" \
+            else "flash_attention"
+        if (min(counts[k] for k in paths[mode]) <= 0 or counts[other]
+                or (mode == "dense" and (
+                    counts["flash_attention"] != L * len(prompts)
+                    or rec["prefill_launches"] or rec["prefill_compiles"]
+                    != len({cp.engine._dense_bucket(len(p))
+                            for p in prompts})))):
+            raise AssertionError(f"dense prefill, {mode}: {rec}")
+        del cp
+    # (b) timed in turn
+    for mode in DP_MODES + DP_MODES[::-1]:
+        cp = _dp_plane(cfg, params, mode, False)
+        done, rec = _dp_wave(torch, cp, prompts)
+        runs[mode]["timed"].append(rec)
+        if {r.rid: list(r.generated) for r in done} != first[mode]:
+            raise AssertionError(f"dense prefill, {mode}: a timed run's "
+                                 "tokens differ from the first run's")
+        del cp
+    ab = {"phase": "dense_prefill_ab", "model": cfg.name, "dtype": "bfloat16",
+          "layer_weight_scale": SCALE, "mix": DP_MIX, "max_new": DP_MAX_NEW,
+          "engine": DP_ENGINE_KW, "prefill_budget": DP_PREFILL_BUDGET,
+          "prompt_lens": [len(p) for p in prompts],
+          "runs": runs, "nvidia_smi": smi}
+    emit(ab)
+
+    # (c) the radix wave in dense mode: members' tails through
+    # _prefill_suffix, each forking the page it shares with its prompt
+    rng = np.random.default_rng(12)
+    wave = [rng.integers(4, cfg.vocab_size, size=n).astype(np.int32)
+            for n in DP_WAVE_LENS]
+    members = [np.concatenate([w[:len(w) - DP_TAIL], rng.integers(
+        4, cfg.vocab_size, size=DP_TAIL).astype(np.int32)])
+        for w in wave for _ in range(GROUP)]
+    cp = _dp_plane(cfg, params, "dense", True)
+    eng = cp.engine
+    _reset_counts()
+    warm, _ = _dp_wave(torch, cp, wave)
+    forks0 = eng.allocator.forks
+
+    def publish(step):
+        if step == 2:
+            cp.store.publish(params, 1)
+
+    group, grec = _dp_wave(torch, cp, members, publish)
+    counts = _all_counts()
+    by_path["dense_prefill_radix"] = {k: counts[k]
+                                      for k in paths["dense"]}
+    hits = [r.prefix_hit_tokens for r in group]
+    versions = sorted({v for r in group for v in r.token_versions})
+    _check_stamps(warm + group, "dense prefill radix wave")
+    radix = {"phase": "dense_prefill_radix", "wave_lens": DP_WAVE_LENS,
+             "tail": DP_TAIL, "group": GROUP, "prefix_hits": hits,
+             "cow_forks": eng.allocator.forks - forks0,
+             "versions": versions, "interrupts": cp.metrics.interrupts,
+             "group_wave": grec, "launches": by_path["dense_prefill_radix"],
+             "reference_checks": _reference_checks(
+                 torch, M, cfg, params, warm + group, ENGINE_GAP_TOL,
+                 ENGINE_LOGP_TOL)}
+    # each member forks the page its tail starts in and, where its prompt
+    # ends inside a page (which the radix cache then shares), that page at
+    # its first decode step
+    bs = DP_ENGINE_KW["block_size"]
+    # one member more, admitted straight into the engine: the paged decode
+    # kernel captured on the last one-active-slot step of its tail
+    extra = np.concatenate([wave[-1][:len(wave[-1]) - DP_TAIL],
+                            rng.integers(4, cfg.vocab_size, size=DP_TAIL)
+                            .astype(np.int32)])
+    with _capture_ops(torch, _paged_sites()) as got:
+        eng.admit_request(params, 0, Request(10_000, extra, DP_MAX_NEW),
+                          version=1)
+    seen["suffix"] = got
+    radix["extra_hit"] = eng.slots[0].prefix_hit_tokens
+    eng.release_slot(0)
+    eng.prefix_cache.clear()
+    radix["free_after_clear"] = eng.allocator.n_free
+    emit(radix)
+    if (hits != [len(m) - DP_TAIL for m in members]
+            or radix["extra_hit"] != len(extra) - DP_TAIL
+            or radix["cow_forks"] != sum(1 + (len(m) % bs != 0)
+                                         for m in members)
+            or versions != [0, 1]
+            or grec["prefill_launches"] or grec["prefill_chunk_tokens"]
+            or min(counts[k] for k in paths["dense"]) <= 0
+            or eng.allocator.n_free != DP_ENGINE_KW["n_blocks"] - 1):
+        raise AssertionError(f"dense prefill radix wave: {radix}")
+    del cp, eng
+
+    # (d) float32 at 4 layers: dense and chunked agree
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=DP_F32_LAYERS)
+    params32 = M.init_params(cfg32,
+                             torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda", dtype=torch.float32)
+    _scale_blocks(torch, params32, SCALE)
+    tokens, logits = {}, {}
+    for mode in DP_MODES:
+        done, _ = _dp_wave(torch, _dp_plane(cfg32, params32, mode, False),
+                           prompts)
+        tokens[mode] = [list(r.generated) for r in done]
+        eng = ContinuousBatchingEngine(cfg32, device="cuda",
+                                       prefill_mode=mode, **DP_ENGINE_KW)
+        rows = []
+        for i, p in enumerate(prompts):
+            slot = i % eng.max_seqs
+            if eng.slots[slot] is not None:
+                eng.release_slot(slot)
+            eng.admit_request(params32, slot, Request(i + 1, p, DP_MAX_NEW))
+            rows.append(eng._next_logits[slot].clone())
+        logits[mode] = torch.stack(rows)
+        del eng
+    diff = (logits["dense"] - logits["chunked"]).abs().max().item()
+    f32 = {"phase": "dense_prefill_float32", "layers": DP_F32_LAYERS,
+           "same_tokens": tokens["dense"] == tokens["chunked"],
+           "max_abs_logits_diff": diff, "logits_tol": DP_F32_LOGITS_TOL,
+           "max_abs_logit": logits["dense"].abs().max().item()}
+    emit(f32)
+    if not f32["same_tokens"] or not diff <= DP_F32_LOGITS_TOL:
+        raise AssertionError(f"dense prefill float32: {f32}")
+    del params32, logits
+    torch.cuda.empty_cache()
+
+    # (e) the kernels held and timed on their last calls
+    held = {mode: dict(_hold_path_kernels(torch, seen[mode]),
+                       **_hold_paged_kernels(torch, seen[mode]))
+            for mode in DP_MODES}
+    held["suffix"] = _hold_paged_kernels(torch, seen["suffix"])
+    for label, names in (("dense", paths["dense"]),
+                         ("chunked", paths["chunked"]),
+                         ("suffix", ("paged_decode_attention",))):
+        if set(held[label]) != set(names):
+            raise AssertionError(f"dense prefill {label}: held "
+                                 f"{sorted(held[label])} of {names}")
+    emit({"phase": "dense_prefill_held", "kernels": held})
+    at_paths["dense_prefill_dense"] = _time_path_kernels(
+        torch, seen["dense"], "dense_prefill_dense")
+    at_paths["dense_prefill_chunked"] = _time_paged(
+        torch, seen["chunked"], "dense_prefill_chunked")
+    at_paths["dense_prefill_suffix"] = _time_paged(
+        torch, seen["suffix"], "dense_prefill_suffix")
+    del seen, params
+    torch.cuda.empty_cache()
+    emit({"phase": "dense_prefill", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
     return by_path, at_paths
 
 
@@ -5528,6 +5865,11 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
     torch.cuda.empty_cache()
     by_path["steps"], at_paths["steps"] = phase_steps(torch, dry_tmp,
                                                       dry_procs)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        dp_launches, dp_times = phase_dense_prefill(torch, smi)
+    by_path.update(dp_launches)
+    at_paths.update(dp_times)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),

@@ -18,8 +18,12 @@
 //   card's 989 TFLOP/s in bf16) against ~0.5 GB of operands, far above the
 //   card's ~295 flop/byte balance point. The logits never reach device
 //   memory in the forward: a block folds each logit tile into four online
-//   per-row statistics (max, sum of exp, sum of exp*logit, target logit),
-//   and a second small pass merges the blocks' vocab ranges. The backward
+//   per-row statistics (max m, sum of exp(l - m), sum of exp(l - m) *
+//   (l - m), target logit), and a second small pass merges the blocks'
+//   vocab ranges. The third sum is relative to the running max, not sum
+//   exp * l: a sum of terms ~|l| (tens) loses ~|l| 2^-24 an add, ~1e-5
+//   absolute over a vocabulary, which the backward's l - mu carries into
+//   dh; relative to m the dominant terms are near 0. The backward
 //   is three such products (this kernel's logit recompute, then dh and
 //   dw): 3.26 ms at the tensor-core rate at that shape.
 //
@@ -287,11 +291,13 @@ __global__ void __launch_bounds__(NT)
     for (int c = q; c < valid; c += 4) {
       const float v = lrow[c], e = expf(v - m_new);
       se += e;
-      ss += e * v;
+      ss += e * (v - m_new);
     }
     const float corr = expf(run_m - m_new);  // 0 on the first tile
+    // the running sum of exp(l - m) (l - m), moved from run_m to m_new
+    const float shift = run_l > 0.0f ? (m_new - run_m) * run_l : 0.0f;
+    run_s = (run_s - shift) * corr + quad_sum(ss);
     run_l = run_l * corr + quad_sum(se);
-    run_s = run_s * corr + quad_sum(ss);
     run_m = m_new;
     const int lt = tgt - n0;
     if (lt >= 0 && lt < valid && (lt & 3) == q) tgt_logit = lrow[lt];
@@ -318,19 +324,23 @@ __global__ void forward_merge(const float* __restrict__ part, int splits,
   const long long plane = (long long)splits * rows;
   float M = -INFINITY;
   for (int k = 0; k < splits; ++k) M = fmaxf(M, part[(long long)k * rows + i]);
+  // S: sum of exp(l - M) (l - M), from each range's sum relative to its m
   float L = 0.0f, S = 0.0f, tgt = 0.0f;
   for (int k = 0; k < splits; ++k) {
     const long long at = (long long)k * rows + i;
-    const float f = expf(part[at] - M);
-    L += part[plane + at] * f;
-    S += part[2 * plane + at] * f;
+    const float l = part[plane + at];
+    if (l > 0.0f) {  // an empty range has m = -inf
+      const float f = expf(part[at] - M);
+      L += l * f;
+      S += (part[2 * plane + at] + (part[at] - M) * l) * f;
+    }
     tgt += part[3 * plane + at];
   }
-  const float lz = M + logf(L), mu = S / L;
+  const float lz = M + logf(L), rel = S / L;
   logp[i] = tgt - lz;
-  ent[i] = lz - mu;
+  ent[i] = logf(L) - rel;
   logz[i] = lz;
-  mean_logit[i] = mu;
+  mean_logit[i] = M + rel;
 }
 
 // Backward: the float32 logit cotangent of one tile, written to dl[T][V].
@@ -606,6 +616,9 @@ struct Stats {
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);  // finite
     const float corr_a = exp2f((m_a - mn_a) * kLog2e);  // 0 on the first
     const float corr_b = exp2f((m_b - mn_b) * kLog2e);
+    // the running sums of exp(l - m) (l - m), moved from m to the new max
+    const float sh_a = l_a > 0.f ? (mn_a - m_a) * l_a : 0.f;
+    const float sh_b = l_b > 0.f ? (mn_b - m_b) * l_b : 0.f;
     m_a = mn_a;
     m_b = mn_b;
     const float na = -mn_a * kLog2e, nb = -mn_b * kLog2e;
@@ -614,7 +627,7 @@ struct Stats {
     for (int j = 0; j < 64; ++j) {
       const float x = acc[j];
       const float e = exp2f(fmaf(x, kLog2e, (j & 2) ? nb : na));  // 0: masked
-      const float ex = e > 0.f ? e * x : 0.f;
+      const float ex = e > 0.f ? e * (x - ((j & 2) ? mn_b : mn_a)) : 0.f;
       if (j & 2) {
         se_b += e;
         ss_b += ex;
@@ -623,10 +636,10 @@ struct Stats {
         ss_a += ex;
       }
     }
+    s_a = (s_a - sh_a) * corr_a + ss_a;
+    s_b = (s_b - sh_b) * corr_b + ss_b;
     l_a = l_a * corr_a + se_a;
     l_b = l_b * corr_b + se_b;
-    s_a = s_a * corr_a + ss_a;
-    s_b = s_b * corr_b + ss_b;
     const int ca = tgt_a - n0, cb = tgt_b - n0;
     if (ca >= 0 && ca < BN) {
 #pragma unroll

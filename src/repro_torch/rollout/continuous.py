@@ -4,7 +4,8 @@
 Requests are admitted into fixed slots as others finish; finished
 sequences release their pages back to the allocator. Prompts stream
 through the chunked prefill lane (segment-packed chunks of at most
-``prefill_chunk`` tokens, resumable across launches), and decoding runs
+``prefill_chunk`` tokens, resumable across launches), or, with
+``prefill_mode="dense"``, are prefilled whole at admission; decoding runs
 either one token per ``step`` or ``decode_horizon`` tokens per
 ``step_horizon`` with a single device-to-host drain per horizon.
 
@@ -19,10 +20,13 @@ The entry points (``run``, ``step``, ``step_horizon``, ``prefill_step``)
 run under ``torch.no_grad()``: serving weights that require gradients (the
 trainer's) records no autograd graph.
 
-Attention always takes the paged path: every decoded token and every
-prefill chunk attends through the block table with the paged kernels
-(``paged_decode_attention_op`` / ``paged_prefill_attention_op``), on the
-card and, through their plain versions, on the CPU.
+Decoded tokens and prefill chunks attend through the block table with
+the paged kernels (``paged_decode_attention_op`` /
+``paged_prefill_attention_op``), on the card and, through their plain
+versions, on the CPU. Dense mode's whole-sequence prefill attends through
+the flash kernel op (``models.model.prefill``) and writes its K/V into
+the pool pages; the uncached tail of a radix hit runs one token at a time
+through the paged decode step.
 """
 from __future__ import annotations
 
@@ -309,6 +313,38 @@ def _paged_prefill_chunk(params, layers, cfg: ModelConfig,
     return logits_from_hidden(params["embedding"], hidden[rows], cfg)
 
 
+def _dense_prefill(params, cfg: ModelConfig, state: pc.PagedCacheState,
+                   tokens: torch.Tensor, length: int, table: torch.Tensor,
+                   *, trash_block: int) -> torch.Tensor:
+    """Whole-sequence prefill of one prompt into pool pages -> float32
+    next-token logits [V].
+
+    ``tokens`` [1, Pb] is the prompt right-padded with PAD to its bucket,
+    ``length`` its true length and ``table`` [max_blocks] the slot's block
+    table, on the device. ``models.model.prefill`` attends through the flash
+    kernel op, causal with no pad mask, so the valid rows are exact. The
+    K/V of all Pb positions then land in the pool with one indexed write
+    per pool over (layer, page, offset), the pad positions on the scratch
+    block: no host loop and no device readback.
+    """
+    Pb = tokens.shape[1]
+    bs, mb = state.block_size, state.max_blocks
+    dev = tokens.device
+    hidden, cache = M.prefill(
+        params, cfg, tokens,
+        lengths=torch.full((1,), length, dtype=torch.int32, device=dev),
+        max_len=Pb)
+    pos = torch.arange(Pb, device=dev)
+    valid = pos < length
+    blk = (pos // bs).clamp(max=mb - 1)
+    phys = torch.where(valid, table.long().clamp_min(0)[blk], trash_block)
+    off = torch.where(valid, pos % bs, 0)
+    for pool, name in ((state.pool_k, "k"), (state.pool_v, "v")):
+        pool[:, phys, off] = cache["attn"][name][:, 0].to(pool.dtype)
+    return logits_from_hidden(params["embedding"],
+                              hidden[0, length - 1: length], cfg)[0]
+
+
 def _multiarch_prefill_chunk(params, layers, cfg: ModelConfig,
                              state: pc.PagedCacheState,
                              ssm: pc.SSMStateCache, slots: List[int],
@@ -382,6 +418,11 @@ class ContinuousBatchingEngine:
     ``match``/``insert``/``evict``/``evictable_count``; untyped to avoid a
     rollout -> serving import cycle): prompts that hit it start their
     prefill at the matched cursor on shared, copy-on-write pages.
+
+    ``prefill_mode="chunked"`` streams prompts through the chunk lane;
+    ``"dense"`` prefills each prompt whole at admission (the reference's
+    bench baseline), padded up the bucket ladder, with a radix hit's tail
+    run one token at a time through the paged decode step.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_seqs: int = 8,
@@ -389,19 +430,27 @@ class ContinuousBatchingEngine:
                  max_blocks_per_seq: int = 16,
                  rl: Optional[RLConfig] = None, greedy: bool = False,
                  prefix_cache=None, decode_horizon: int = 1,
-                 prefill_chunk: int = 32, device="cuda"):
+                 prefill_chunk: int = 32, prefill_mode: str = "chunked",
+                 device="cuda"):
         # MoE, MLA and frontend stacks serve through the dense
         # RolloutEngine only, as in the reference
         if cfg.arch_type not in ("dense", "ssm", "hybrid"):
             raise ValueError(f"paged serving: dense/ssm/hybrid archs, got "
                              f"{cfg.arch_type}")
+        if prefill_mode not in ("chunked", "dense"):
+            raise ValueError(prefill_mode)
         M.check_arch(cfg)
         self.cfg = cfg
         self.device = require_device(device)
         self.rl = rl or RLConfig()
         self.greedy = greedy
         self.max_seqs = max_seqs
+        self.prefill_mode = prefill_mode
         self.prefill_chunk = int(prefill_chunk)
+        # dense prefill pads a prompt up this ladder (then whole chunks)
+        self._chunk_buckets = tuple(sorted(
+            {max(8, self.prefill_chunk // 4),
+             max(8, self.prefill_chunk // 2), self.prefill_chunk}))
         # tokens decoded per step_horizon call (1 = per-token step)
         self.decode_horizon = int(decode_horizon)
         self.prefix_cache = prefix_cache
@@ -409,6 +458,9 @@ class ContinuousBatchingEngine:
         # the paged KV pool (which has zero layers for pure-SSM stacks)
         self.n_ssm = M.layout(cfg)[1]
         if self.n_ssm:
+            if prefill_mode != "chunked":
+                raise ValueError("SSM/hybrid serving requires the chunked "
+                                 "prefill lane")
             if prefix_cache is not None:
                 raise ValueError(
                     "the radix prefix cache shares KV blocks across "
@@ -455,10 +507,11 @@ class ContinuousBatchingEngine:
         self.tokens_emitted = 0
         self.last_emitted = 0
         # prefill-lane telemetry: chunk launches, prompt tokens computed
-        # through the chunk path, and distinct chunk launch shapes. Nothing
-        # is compiled here (the reference counts its jit compiles, one per
-        # padded bucket); the counter keeps the serving metrics' schema and
-        # counts the distinct (rows) / (rows, width) shapes launched.
+        # through the chunk path, and distinct prefill launch shapes.
+        # Nothing is compiled here (the reference counts its jit compiles,
+        # one per padded bucket); the counter keeps the serving metrics'
+        # schema and counts the distinct (rows) / (rows, width) chunk shapes
+        # and ("dense", Pb) whole-sequence shapes launched.
         self.prefill_launches = 0
         self.prefill_chunk_tokens = 0
         self.prefill_compiles = 0
@@ -474,10 +527,26 @@ class ContinuousBatchingEngine:
         return self._rid
 
     def _cache_plan(self, prompt) -> tuple:
-        """(n_blocks, n_tokens) the radix cache will serve."""
+        """(n_blocks, n_tokens) the radix cache will serve.
+
+        In dense mode a match is not taken, (0, 0), when its uncached tail
+        is longer than ``max(2 * block_size, (P - 1) // 2)``: the tail runs
+        one full-width decode step per token, so a small match on a long
+        prompt would be slower than one dense prefill. The chunk lane
+        replays a tail in ceil(len / chunk) launches, so any match pays.
+        """
         if self.prefix_cache is None:
             return 0, 0
-        return self.prefix_cache.lookup(prompt, max_tokens=len(prompt) - 1)
+        P = len(prompt)
+        n_blocks, n_matched = self.prefix_cache.lookup(prompt,
+                                                       max_tokens=P - 1)
+        if n_matched == 0:
+            return 0, 0
+        if self.prefill_mode != "chunked":
+            suffix = (P - 1) - n_matched
+            if suffix > max(2 * self.state.block_size, (P - 1) // 2):
+                return 0, 0
+        return n_blocks, n_matched
 
     def blocks_needed(self, prompt, max_new: int) -> int:
         """Fresh blocks a request needs, given current prefix-cache state
@@ -569,7 +638,14 @@ class ContinuousBatchingEngine:
                       version: int = 0, *, prefill: bool = True) -> None:
         """Place ``req`` into ``slot``. ``prefill=True`` leaves the slot
         fully prefilled on return (by draining the chunk lane);
-        ``prefill=False`` leaves the chunks to ``prefill_step``."""
+        ``prefill=False`` leaves the chunks to ``prefill_step``. Dense mode
+        prefills the whole prompt here whatever ``prefill`` says."""
+        if self.prefill_mode == "dense":
+            assert self.slots[slot] is None, f"slot {slot} occupied"
+            self.slots[slot] = req
+            self._prefill_into(params, slot, req, version=version)
+            req.prefill_pos = len(req.prompt)
+            return
         self.start_prefill(slot, req, version=version)
         if prefill:
             while not req.prefill_done:
@@ -702,6 +778,20 @@ class ContinuousBatchingEngine:
                         r.prompt,
                         [int(b) for b in self._tables[slot][:n_blocks]])
 
+    def _chunk_bucket(self, n: int) -> int:
+        """Smallest ladder bucket holding ``n`` tokens (n <= chunk)."""
+        for b in self._chunk_buckets:
+            if n <= b:
+                return b
+        return self.prefill_chunk
+
+    def _dense_bucket(self, n: int) -> int:
+        """Pad width of a dense whole-sequence prefill: the chunk ladder up
+        to ``prefill_chunk``, whole chunks above it."""
+        if n <= self.prefill_chunk:
+            return self._chunk_bucket(n)
+        return -(-n // self.prefill_chunk) * self.prefill_chunk
+
     def _note_shape(self, shape: tuple) -> None:
         if shape not in self._prefill_shapes:
             self._prefill_shapes.add(shape)
@@ -762,6 +852,85 @@ class ContinuousBatchingEngine:
         decode loop itself never reads device state back)."""
         self._tables = self.state.block_tables.cpu().numpy().copy()
         self._lens = self.state.seq_lens.cpu().numpy().copy()
+
+    @torch.no_grad()
+    def _prefill_into(self, params, slot: int, req: Request,
+                      version: int = 0) -> None:
+        """Dense mode's admission: the whole prompt's K/V into ``slot``'s
+        pages and its next-token logits, the prompt into the radix cache,
+        the host mirrors refreshed once."""
+        P = len(req.prompt)
+        with span("prefill", slot=slot, prompt_tokens=P,
+                  version=version) as sp:
+            matched: List[int] = []
+            n_matched = 0
+            if self._cache_plan(req.prompt)[1]:
+                # capped at P - 1: the last prompt token always runs, so
+                # the slot has next-token logits to sample from
+                matched, n_matched = self.prefix_cache.match(
+                    req.prompt, max_tokens=P - 1)
+            if n_matched:
+                pc.map_sequence_prefixed(self.state, self.allocator, slot,
+                                         matched, n_matched,
+                                         P + req.max_new)
+                self._prefill_suffix(params, slot, req.prompt[n_matched:])
+            else:
+                pc.map_sequence(self.state, self.allocator, slot,
+                                P + req.max_new)
+                Pb = self._dense_bucket(P)
+                toks = np.full((1, Pb), tok.PAD, np.int64)
+                toks[0, :P] = req.prompt
+                self._next_logits[slot] = _dense_prefill(
+                    params, self.cfg, self.state,
+                    torch.from_numpy(toks).to(self.device), P,
+                    self.state.block_tables[slot],
+                    trash_block=self.trash_block)
+                self._note_shape(("dense", Pb))
+                self.state.seq_lens[slot] = P
+            req.prefix_hit_tokens = n_matched
+            self._sync_mirrors()
+            if self.prefix_cache is not None:
+                n_blocks = -(-P // self.state.block_size)
+                self.prefix_cache.insert(
+                    req.prompt,
+                    [int(b) for b in self._tables[slot][:n_blocks]])
+            self._logits_version[slot] = version
+            sp.set(prefix_hit_tokens=n_matched)
+
+    def _prefill_suffix(self, params, slot: int, suffix) -> None:
+        """Prefill a radix hit's uncached tail through the paged decode
+        step, one token at a time.
+
+        The cached prefix's K/V is already resident in the slot's pages, so
+        each remaining prompt token is one decode step over them. Only
+        ``slot`` is active: every other slot is pointed at the scratch
+        block, so no other slot's pages or ``_next_logits`` row change.
+        Before each token the slot's next page is mapped and, where the
+        radix cache shares it, forked (copy on write).
+        """
+        S, mb = self.max_seqs, self.state.max_blocks
+        tables = torch.full((S, mb), -1, dtype=torch.int32,
+                            device=self.device)
+        tables[:, 0] = self.trash_block
+        lens = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        active = torch.zeros((S,), dtype=torch.bool, device=self.device)
+        active[slot] = True
+        view = pc.PagedCacheState(self.state.pool_k, self.state.pool_v,
+                                  tables, lens)
+        layers = _layers(params, self.cfg)
+        for t in suffix:
+            self._reclaim_headroom(2)  # capacity growth + a possible fork
+            pc.ensure_capacity(self.state, self.allocator, slot)
+            pc.ensure_writable(self.state, self.allocator, slot)
+            tables[slot] = self.state.block_tables[slot]
+            lens[slot] = self.state.seq_lens[slot]
+            tokens = torch.full((S,), int(t), dtype=torch.long,
+                                device=self.device)
+            logits = _paged_decode_step(params, layers, self.cfg, view,
+                                        tokens, active,
+                                        trash_block=self.trash_block)
+            self.state.seq_lens[slot] += 1
+            self._next_logits[slot] = logits[slot]
 
     # ----------------------------------------------------------------- step
     def _prepare_decode(self, slot_tokens: Dict[int, int]) -> None:

@@ -6,8 +6,9 @@ prompts and the same weights, and the two runs must agree: generated
 tokens, version stamps, prefix hits, block accounting and metric counters
 exactly, behaviour logps and logits within 1e-4. The scenarios are those
 of ``tests/test_serving_control_plane.py``, ``tests/test_prefill_pipeline.py``
-(those that apply: the port has no dense prefill mode and compiles
-nothing) and ``tests/test_scheduler_properties.py``, with their own
+(those of the chunk lane that apply: the port compiles nothing; the dense
+prefill mode's are in ``tests/test_torch_prefill_pipeline.py``) and
+``tests/test_scheduler_properties.py``, with their own
 assertions kept, plus the KV-pressure shed path, an SSM stack (no radix
 cache), the threaded orchestrator and the launcher's ``--engine async``.
 
