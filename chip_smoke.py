@@ -312,7 +312,41 @@ Phases, each printing one JSON line:
              one-active-slot step) and paged prefill (the chunk lane's)
              held on their last calls, each wrong reference failing, and
              timed there.
-20. the kernels line (all ten kernels, each with the shape its ms and
+20. ssm training — mamba2-370m and zamba2-1.2b at full width and depth,
+             bf16, SSM in_proj / out_proj x8: (b) 4 prompts of 64-480
+             tokens x a group of 4 sampled through the dense
+             RolloutEngine (64 tokens, rows of up to 544: three chunks of
+             256, the last padded), seeded Bernoulli rewards, then one
+             a3po Trainer.step at staleness 1 and one recompute step:
+             every metric finite, every leaf given a gradient (its Adam
+             first moment moved; bf16 leaves near 1 round an lr-sized
+             update away, so the unmoved ones are listed), the intra-chunk
+             kernel not launched in a3po's step and once per SSM layer in
+             recompute's prox forward; the logprob forward and backward
+             (at mamba2's V 50,280, not a multiple of the 128-entry vocab
+             tile) and the A-3PO loss held against their plain versions
+             on their last call, with the wrong references of phase 10,
+             the intra-chunk kernel on its last call (the prox forward)
+             with phase 11's, each timed there; step s, prox s and peak
+             memory; for mamba2 also launch/steps.py's make_train_step
+             (A-3PO, 4 microbatches, seeded advantages): finite loss, the
+             parameters moved, the intra-chunk kernel not launched; the
+             profile of an a3po step. (a) At recompute's parameters its
+             prox logps (the kernel route) against the training
+             forward's route (the
+             differentiable scan, gradients enabled) within the bf16
+             tolerance, which a kernel route that drops the state carried
+             into the second chunk must fail; at full width, 2 layers,
+             float32, every SSM leaf's gradient on the card against the
+             same on the CPU. (c) The launcher through its main(): mamba2
+             `--engine sim` at staleness 2 sampled at top-p 0.9, zamba2
+             `--engine async`, 4 steps, a3po: staleness, host syncs, the
+             path's kernels launched; every behaviour logp against
+             forward_logits of the tree that made it (across a publish,
+             token by token on one cache under each token's stamp); the
+             SSD, paged, logprob and A-3PO kernels held on their last
+             call and timed there; rollout and train s a step.
+21. the kernels line (all ten kernels, each with the shape its ms and
              bound belong to; the logprob forward's and backward's also with
              their wgmma launches on the main path, the backward's with its
              peak memory, dense decode's with its split plan, the A-3PO
@@ -322,7 +356,8 @@ Phases, each printing one JSON line:
              path of phases 14 and 15, each path driven with the counts
              at 0; the paged kernels' times at phase 14 (c)'s and 15's
              shapes, and rows 3-6's launches and times on the paths of
-             phases 16, 17 and 18, rows 1, 2 and 4's on phase 19's), then
+             phases 16, 17 and 18, rows 1, 2 and 4's on phase 19's, and
+             rows 1, 2 and 5-8's on phase 20's), then
              the contract line (last):
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -334,6 +369,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1380,33 +1416,66 @@ def phase_engine(torch):
     return launches
 
 
-def _device_profile(torch, run):
+def _device_profile(torch, run, cross_check=False):
     """torch.profiler over ``run()`` (which returns its wall seconds):
     device time by kernel name and the device's idle share of the wall
     time, the twelve largest names and every kernel of the port's own (a
     ``__global__`` function of ``kernels/csrc``). Only events that ran on
     the device count (the CPU ops that launched them carry the same time
-    again), and busy time is the union of their intervals."""
+    again), and busy time is the union of their intervals. The device
+    events are read from the profiler's raw results: building
+    ``prof.events()`` (every CPU op's FunctionEvent and the op tree) takes
+    ~0.25 ms an event on the card's host, tens of seconds for a step.
+    ``cross_check`` builds it all the same and fails unless its device
+    events give the same names, counts and sums (``cross_check`` in the
+    result: the events compared and the seconds the check took)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         elapsed = run()
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    # integer ns since the epoch: in float64 microseconds they would
+    # round to 0.25 us
+    spans, by_ns = [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA \
+                or getattr(ev, "is_hidden_event", lambda: False)():
             continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
+        t0, t1 = ev.start_ns(), ev.end_ns()
         spans.append((t0, t1))
-        us, n = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (us + (t1 - t0), n + 1)
+        ns, n = by_ns.get(ev.name(), (0, 0))
+        by_ns[ev.name()] = (ns + (t1 - t0), n + 1)
     if not spans:
         raise AssertionError("the profiler saw no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):
+    by_name = {k: (ns / 1e3, n) for k, (ns, n) in by_ns.items()}
+    checked = None
+    if cross_check:
+        t_check = time.perf_counter()
+        old = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                us, n = old.get(ev.name, (0.0, 0))
+                old[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+        differ = sorted(k for k in set(old) | set(by_name)
+                        if k not in old or k not in by_name
+                        or old[k][1] != by_name[k][1]
+                        or abs(old[k][0] - by_name[k][0])
+                        > 1e-6 * max(1.0, old[k][0]))
+        checked = {"events": len(spans), "names": len(by_name),
+                   "seconds": time.perf_counter() - t_check}
+        if differ:
+            raise AssertionError(
+                f"raw device events and prof.events() differ on "
+                f"{len(differ)} names: " + "; ".join(
+                    f"{k[:60]}: {old.get(k)} vs {by_name.get(k)}"
+                    for k in differ[:5]))
+    spans.sort()
+    busy_ns, end = 0, spans[0][0]
+    for t0, t1 in spans:
         if t1 > end:
-            busy_us += t1 - max(t0, end)
+            busy_ns += t1 - max(t0, end)
             end = t1
+    busy_us = busy_ns / 1e3
     rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
                   reverse=True)
     return {"wall_s": elapsed, "device_busy_s": busy_us / 1e6,
@@ -1418,7 +1487,8 @@ def _device_profile(torch, run):
                 for us, k, n in rows[:12]],
             "port_kernels": [
                 {"name": k[:90], "device_ms": us / 1e3, "calls": n}
-                for us, k, n in rows if _is_port_kernel(k)]}
+                for us, k, n in rows if _is_port_kernel(k)],
+            "cross_check": checked}
 
 
 @functools.lru_cache(maxsize=None)
@@ -2399,7 +2469,8 @@ def _check_records(np, recs, label):
 @contextlib.contextmanager
 def _capture_ops(torch, sites):
     """Record what each op in ``sites`` ({name: (module, attribute)}) was
-    last given, as detached copies (strides kept), by wrapping it under
+    last given (its tensor arguments and keyword arguments as detached
+    copies, strides kept), by wrapping it under
     the name its caller looks it up by; every call goes through
     unchanged."""
     seen = {}
@@ -2408,7 +2479,9 @@ def _capture_ops(torch, sites):
     def wrap(name, fn):
         def run(*args, **kw):
             seen[name] = ([a.detach().clone() if torch.is_tensor(a) else a
-                           for a in args], kw)
+                           for a in args],
+                          {k: v.detach().clone() if torch.is_tensor(v) else v
+                           for k, v in kw.items()})
             return fn(*args, **kw)
         return run
 
@@ -2422,16 +2495,17 @@ def _capture_ops(torch, sites):
 
 
 @contextlib.contextmanager
-def _capture_path(torch):
-    """Record, from a run of the main path, what its four kernel ops were
-    last given (``_capture_ops``) and every rollout. Yields {op name:
-    (args, kwargs)} with ``"rollouts"``: [(params, version, RolloutBatch)]
-    and ``"trees"``: {version: a copy of its parameters when a rollout
-    first used them}."""
+def _capture_path(torch, extra=None):
+    """Record, from a run of the main path, what its four kernel ops (and
+    the ops of the ``extra`` sites, e.g. ``_ssd_sites()``) were last given
+    (``_capture_ops``) and every rollout. Yields {op name: (args, kwargs)}
+    with ``"rollouts"``: [(params, version, RolloutBatch)] and ``"trees"``:
+    {version: a copy of its parameters when a rollout first used them}."""
     from repro_torch.rollout.engine import RolloutEngine
     from repro_torch.training.optimizer import flatten
     plain = RolloutEngine.generate
-    with _capture_ops(torch, _dense_sites(train=True)) as seen:
+    with _capture_ops(torch, {**_dense_sites(train=True),
+                              **(extra or {})}) as seen:
         seen.update(rollouts=[], trees={})
 
         def generate(self, params, *args, **kw):
@@ -2490,10 +2564,11 @@ def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one",
     """Each kernel op the path called, held against its plain version on
     the inputs of its last call there (bf16 attention and logprob inputs
     against float32 plain versions, the A-3PO loss in float32), with the
-    wrong references of the kernel phases (dense decode's: ``lengths -
-    1``, or with ``decode_wrong="top_key_dropped"``
-    ``_dense_top_key_dropped``; the A-3PO loss's: ``a3po_wrong``). Returns
-    the records."""
+    wrong references of the kernel phases (dense decode's, one label or a
+    tuple of them: ``"lengths_minus_one"``, ``"top_key_dropped"``
+    (``_dense_top_key_dropped``) or ``"half_the_keys"`` (each row's first
+    half of its keys only); the A-3PO loss's: ``a3po_wrong``). Returns the
+    records."""
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn import ops as fops
@@ -2523,12 +2598,18 @@ def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one",
             rec = {"name": "decode_attention", "shape": list(q.shape),
                    "cache": list(kc.shape),
                    "lengths": [int(lengths.min()), int(lengths.max())]}
-            wrong = (_dense_top_key_dropped(torch, q, kc, vc, lengths)
-                     if decode_wrong == "top_key_dropped" else
-                     decode_attention_ref(q32, k32, v32, lengths - 1))
+            wrong = {
+                "lengths_minus_one": lambda: decode_attention_ref(
+                    q32, k32, v32, lengths - 1),
+                "top_key_dropped": lambda: _dense_top_key_dropped(
+                    torch, q, kc, vc, lengths),
+                "half_the_keys": lambda: decode_attention_ref(
+                    q32, k32, v32, (lengths + 1) // 2)}
+            labels = ((decode_wrong,) if isinstance(decode_wrong, str)
+                      else decode_wrong)
             _hold(torch, rec, out, decode_attention_ref(q32, k32, v32,
                                                         lengths), tol,
-                  {decode_wrong: wrong})
+                  {k: wrong[k]() for k in labels})
         recs["decode_attention"] = rec
     if "token_logprob_entropy" in seen:
         (h, w, t), _ = seen["token_logprob_entropy"]
@@ -3257,25 +3338,31 @@ def _copy_resume(torch, info):
 
 
 @contextlib.contextmanager
-def _scaled_launcher(torch, train, cfg, kept):
+def _scaled_launcher(torch, train, cfg, kept, scale=None, top_p=None):
     """The launcher's sim engine with the task's rewards as seeded
     Bernoulli draws from the task's RNG, its fresh initial state (seed 7,
-    as simulate_async makes it) with the layer weights x8, ``cfg`` for
-    the architecture, and what simulate_async was given and returned kept
-    in ``kept`` ("state", "resilience"; with ``kept["call"]`` set, a
-    resumed run's arguments and a copy of its ResumeInfo as they came in
-    replace it)."""
+    as simulate_async makes it) with the layer weights x8 (or ``scale``
+    applied to its parameters), ``cfg`` for the architecture, rollouts
+    sampled at ``top_p`` where it is given, and what simulate_async was
+    given and returned kept in ``kept`` ("state", "resilience"; with
+    ``kept["call"]`` set, a resumed run's arguments and a copy of its
+    ResumeInfo as they came in replace it)."""
     from repro_torch.training import Trainer
     plain = train.ArithmeticTask, train.simulate_async, train.get_config
 
     def sim(cfg_, rl, task, algo, num_steps, **kw):
         resume = kw.get("resume")
+        if top_p is not None:
+            rl = dataclasses.replace(rl, top_p=top_p)
         if resume is None:
             dev = kw["device"]
             state = Trainer(cfg_, rl, algo).init_state(
                 torch.Generator(device=dev).manual_seed(7), device=dev)
             with torch.no_grad():
-                _scale_blocks(torch, state.params, SCALE)
+                if scale is None:
+                    _scale_blocks(torch, state.params, SCALE)
+                else:
+                    scale(state.params)
             kw["init_state"] = state
         elif "call" in kept:
             kept["call"] = (cfg_, rl, type(task), algo, num_steps,
@@ -3293,16 +3380,20 @@ def _scaled_launcher(torch, train, cfg, kept):
 
 
 @contextlib.contextmanager
-def _scaled_orchestrator(torch, train, kept):
+def _scaled_orchestrator(torch, train, kept, scale=None):
     """The launcher's --engine async with the task's rewards as seeded
-    Bernoulli draws and its initial state's layer weights x8; the
-    orchestrator and its final state kept in ``kept``."""
+    Bernoulli draws and its initial state's layer weights x8 (or ``scale``
+    applied to its parameters); the orchestrator and its final state kept
+    in ``kept``."""
     from repro_torch.async_rl.orchestrator import AsyncOrchestrator
 
     class ScaledOrchestrator(AsyncOrchestrator):
         def run(self, state, num_steps, **kw):
             with torch.no_grad():
-                _scale_blocks(torch, state.params, SCALE)
+                if scale is None:
+                    _scale_blocks(torch, state.params, SCALE)
+                else:
+                    scale(state.params)
             kept["orch"] = self
             kept["state"], recs = super().run(state, num_steps, **kw)
             return kept["state"], recs
@@ -3949,16 +4040,114 @@ def _ssd_intra_hi_only(torch, xdt, la, b32, c32, L):
     return y.reshape(B, S, nh, hd), s_local
 
 
+def _hold_ssd_decode(torch, state, x, dt, a_log, b, c):
+    """The decode step on these operands held against its plain version in
+    float32 (y at x's dtype's tolerance, the float32 state at float32's),
+    with the decay left out as the wrong reference. Returns (y, new state,
+    {"y": record, "state": record})."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_decode_step_ref
+    y, new = sops.ssd_decode_step(state, x, dt, a_log, b, c)
+    args32 = (state, x.float(), dt, a_log.float(), b.float(), c.float())
+    y_ref, new_ref = ssd_decode_step_ref(*args32)
+    y_w, new_w = ssd_decode_step_ref(
+        *args32[:3], torch.full_like(args32[3], float("-inf")), *args32[4:])
+    sub = {"y": {"name": "ssd_decode_step.y"},
+           "state": {"name": "ssd_decode_step.state"}}
+    _hold(torch, sub["y"], y, y_ref,
+          TOL["bfloat16" if x.dtype == torch.bfloat16 else "float32"],
+          {"decay_left_out": y_w})
+    _hold(torch, sub["state"], new, new_ref, TOL["float32"],
+          {"decay_left_out": new_w})
+    return y, new, sub
+
+
+def _ssd_decode_times(torch, timer, pool, state, x, dt, a_log, b, c):
+    """The decode step timed in place on ``pool`` (a copy of ``state``)
+    with every row updated, so the full state read and written, beside its
+    plain version; no single PyTorch call computes it."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_decode_step_ref
+    n = state.numel()
+    return _times(
+        torch, timer, "float32",
+        2 * 4 * n + x.element_size() * (2 * x.numel() + 2 * b.numel())
+        + 4 * dt.numel() + a_log.element_size() * a_log.numel(),
+        5 * n,  # update: mul + fma; y: fma
+        lambda: sops.ssd_decode_step(pool, x, dt, a_log, b, c, out=pool),
+        lambda: ssd_decode_step_ref(state, x, dt, a_log, b, c), None,
+        iters=50)
+
+
+def _hold_ssd_intra(torch, xdt, la, b, c, L, cdec_wrong="exclusive_cumsum"):
+    """The intra-chunk op on these operands (the scan's call: three outputs
+    and the in-chunk cumsum) held against its plain version in float32
+    within SSD_INTRA_RTOL, with wrong references: an exclusive cumsum, y
+    without its diagonal, y and s_local from the bf16 hi parts alone
+    (``_ssd_intra_hi_only``), and for cdec ``cdec_wrong``:
+    the exclusive cumsum, or ``"first_decay_dropped"`` (a chunk that ends
+    on pad steps, of zero log decay, has the same cdec under either
+    cumsum). Returns the records by output."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    B, S, nh, _ = xdt.shape
+    nc = S // L
+    outs = sops.ssd_intra_chunk_cum(xdt, la, b, c, L)
+    b32, c32 = b.float(), c.float()
+    ex_la = _exclusive_la(torch, la, L)
+    cums = [torch.cumsum(t.reshape(B, nc, L, nh), dim=2).reshape(B, S, nh)
+            for t in (la, ex_la)]
+    refs = (*ssd_intra_chunk_ref(xdt, la, b32, c32, L), cums[0])
+    excl = (*ssd_intra_chunk_ref(xdt, ex_la, b32, c32, L), cums[1])
+    diag = (c32 * b32).sum(-1)[..., None, None] * xdt
+    hi = _ssd_intra_hi_only(torch, xdt, la, b32, c32, L)
+    sub = {}
+    for i, label in enumerate(("y_intra", "s_local", "cdec", "cum")):
+        wrong = {"exclusive_cumsum": excl[i]}
+        if label == "y_intra":
+            wrong["diagonal_dropped"] = refs[0] - diag
+        if i < 2:
+            wrong["hi_only"] = hi[i]
+        if label == "cdec" and cdec_wrong == "first_decay_dropped":
+            first = la.reshape(B, nc, L, nh)[:, :, 0]
+            wrong = {cdec_wrong: refs[2] * torch.exp(-first)}
+        tol = {"rtol": SSD_INTRA_RTOL,
+               "atol": SSD_INTRA_RTOL * refs[i].abs().max().item()}
+        sub[label] = {"name": f"ssd_intra_chunk.{label}"}
+        _hold(torch, sub[label], outs[i], refs[i], tol, wrong)
+    return sub
+
+
+def _ssd_intra_times(torch, timer, xdt, la, b, c, L, iters, plain_iters):
+    """The intra-chunk op timed as the scan calls it (the three outputs and
+    cum) beside its plain version; no single PyTorch call computes it."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    B, S, nh, hd = xdt.shape
+    ds = b.shape[-1]
+    nc = S // L
+    pairs = L * (L + 1) // 2
+    # xdt and la read, y and cum written; b / c read; s_local and cdec
+    # written per chunk. C_i . B_j once per (batch, chunk); y and s_local
+    # per head; float32 operands, so the tensor cores' TF32 rate bounds the
+    # operations
+    return _times(
+        torch, timer, "tf32",
+        4 * (2 * xdt.numel() + 2 * la.numel())
+        + b.element_size() * (b.numel() + c.numel())
+        + 4 * B * nc * (nh * hd * ds + nh),
+        2 * B * nc * (pairs * ds + nh * pairs * hd + nh * L * hd * ds),
+        lambda: sops.ssd_intra_chunk_cum(xdt, la, b, c, L),
+        lambda: ssd_intra_chunk_ref(xdt, la, b, c, L), None,
+        iters=iters, plain_iters=plain_iters)
+
+
 def phase_ssd_kernels(torch):
     """Both SSD kernels on bf16 inputs (xdt and state float32, as the path
     gives them) against their plain versions in float32 on the same
     values, with wrong references the tolerance must fail by a wide
     margin, timed beside the bound and the plain version."""
     from repro_torch.kernels.ssd import ops as sops
-    from repro_torch.kernels.ssd.ref import (
-        ssd_decode_step_ref,
-        ssd_intra_chunk_ref,
-    )
 
     t_phase = time.perf_counter()
     timer = Timer(torch)
@@ -3966,23 +4155,12 @@ def phase_ssd_kernels(torch):
     results = {}
     for model, nh, ds in SSD_DECODE_SHAPES:
         state, x, dt, a_log, b, c = _ssd_decode_inputs(torch, g, nh, ds)
-        y, new = sops.ssd_decode_step(state, x, dt, a_log, b, c)
-        plan = dict(sops.PLANS["ssd_decode_step"])
-        args32 = (state, x.float(), dt, a_log.float(), b.float(), c.float())
-        y_ref, new_ref = ssd_decode_step_ref(*args32)
-        no_decay = (*args32[:3], torch.full_like(args32[3], float("-inf")),
-                    *args32[4:])
-        y_w, new_w = ssd_decode_step_ref(*no_decay)
+        _, new, sub = _hold_ssd_decode(torch, state, x, dt, a_log, b, c)
         rec = {"phase": "kernel", "name": "ssd_decode_step", "model": model,
                "dtype": "bfloat16", "shape": {"B": SSD_SLOTS, "nh": nh,
                                               "hd": SSD_HD, "ds": ds},
-               "library": "none (no single call)", "plan": plan}
-        sub = {"y": {"name": "ssd_decode_step.y"},
-               "state": {"name": "ssd_decode_step.state"}}
-        _hold(torch, sub["y"], y, y_ref, TOL["bfloat16"],
-              {"decay_left_out": y_w})
-        _hold(torch, sub["state"], new, new_ref, TOL["float32"],
-              {"decay_left_out": new_w})
+               "library": "none (no single call)",
+               "plan": dict(sops.PLANS["ssd_decode_step"])}
         # in place under the engine's emit mask: masked rows untouched
         pool = state.clone()
         update = torch.arange(SSD_SLOTS, device="cuda") % 4 != 3
@@ -3993,17 +4171,8 @@ def phase_ssd_kernels(torch):
             raise AssertionError(f"ssd_decode_step in place: {rec}")
         rec.update(checks=sub, max_abs_err=max(
             s["max_abs_err"] for s in sub.values()))
-        n_state = state.numel()
-        nbytes = (2 * 4 * n_state + 2 * 2 * x.numel() + 2 * 2 * b.numel()
-                  + 4 * dt.numel() + 2 * nh)
-        flops = 5 * n_state  # update: mul + fma; y: fma
-        # timed in place with every row updated: the full state read and
-        # write the bound counts
-        rec.update(_times(
-            torch, timer, "float32", nbytes, flops,
-            lambda: sops.ssd_decode_step(pool, x, dt, a_log, b, c, out=pool),
-            lambda: ssd_decode_step_ref(state, x, dt, a_log, b, c), None,
-            iters=50))
+        rec.update(_ssd_decode_times(torch, timer, pool, state, x, dt, a_log,
+                                     b, c))
         # a yardstick of what such traffic costs: an elementwise PyTorch
         # pass that reads and writes the same state in place
         rec["stream_ms"] = timer.ms(lambda: pool.mul_(1.0), iters=50)
@@ -4011,56 +4180,18 @@ def phase_ssd_kernels(torch):
             results["ssd_decode_step"] = rec
         emit(rec)
     for model, B, S, L, nh, ds in SSD_INTRA_SHAPES:
-        nc = S // L
         xdt, la, b, c = _ssd_intra_inputs(torch, g, B, S, nh, ds)
-        # the scan's call: the three outputs and the in-chunk cumsum
-        outs = sops.ssd_intra_chunk_cum(xdt, la, b, c, L)
-        plan = dict(sops.PLANS["ssd_intra_chunk"])
-        b32, c32 = b.float(), c.float()
-        ex_la = _exclusive_la(torch, la, L)
-        cums = [torch.cumsum(t.reshape(B, nc, L, nh), dim=2).reshape(
-            B, S, nh) for t in (la, ex_la)]
-        refs = (*ssd_intra_chunk_ref(xdt, la, b32, c32, L), cums[0])
-        excl = (*ssd_intra_chunk_ref(xdt, ex_la, b32, c32, L), cums[1])
-        diag = (c32 * b32).sum(-1)[..., None, None] * xdt
-        hi_only = _ssd_intra_hi_only(torch, xdt, la, b32, c32, L)
+        sub = _hold_ssd_intra(torch, xdt, la, b, c, L)
         rec = {"phase": "kernel", "name": "ssd_intra_chunk", "model": model,
                "dtype": "bfloat16 b/c, float32 xdt/la",
                "shape": {"B": B, "S": S, "chunk": L, "nh": nh, "hd": SSD_HD,
                          "ds": ds}, "library": "none (no single call)",
-               "plan": plan}
-        sub = {}
-        for i, label in enumerate(("y_intra", "s_local", "cdec", "cum")):
-            wrong = {"exclusive_cumsum": excl[i]}
-            if label == "y_intra":
-                wrong["diagonal_dropped"] = refs[0] - diag
-            if i < 2:
-                wrong["hi_only"] = hi_only[i]
-            tol = {"rtol": SSD_INTRA_RTOL,
-                   "atol": SSD_INTRA_RTOL * refs[i].abs().max().item()}
-            sub[label] = {"name": f"ssd_intra_chunk.{label}"}
-            _hold(torch, sub[label], outs[i], refs[i], tol, wrong)
-        # the kernels line's error: the three outputs the parent wrote too
-        # (cum's, at |cum| up to ~10^2, is in its own check)
-        rec.update(checks=sub, max_abs_err=max(
-            sub[k]["max_abs_err"] for k in ("y_intra", "s_local", "cdec")))
-        del refs, excl, diag, hi_only
-        pairs = L * (L + 1) // 2
-        # xdt and la read, y and cum written; b / c read; s_local and cdec
-        # written per chunk
-        nbytes = (4 * (2 * xdt.numel() + 2 * la.numel())
-                  + 2 * (b.numel() + c.numel())
-                  + 4 * B * nc * (nh * SSD_HD * ds + nh))
-        # C_i . B_j once per (batch, chunk); y and s_local per head; float32
-        # operands, so the tensor cores' TF32 rate bounds the operations
-        flops = 2 * B * nc * (pairs * ds + nh * pairs * SSD_HD
-                              + nh * L * SSD_HD * ds)
-        # timed as the scan calls it: the three outputs and cum
-        rec.update(_times(
-            torch, timer, "tf32", nbytes, flops,
-            lambda: sops.ssd_intra_chunk_cum(xdt, la, b, c, L),
-            lambda: ssd_intra_chunk_ref(xdt, la, b, c, L), None,
-            iters=20, plain_iters=5))
+               "plan": dict(sops.PLANS["ssd_intra_chunk"]), "checks": sub,
+               # the kernels line's error: the three outputs the parent
+               # wrote too (cum's, at |cum| up to ~10^2, is in its own check)
+               "max_abs_err": max(sub[k]["max_abs_err"]
+                                  for k in ("y_intra", "s_local", "cdec"))}
+        rec.update(_ssd_intra_times(torch, timer, xdt, la, b, c, L, 20, 5))
         if (model, B, S, L) == SSD_INTRA_LINE:
             results["ssd_intra_chunk"] = rec
         emit(rec)
@@ -5783,6 +5914,668 @@ def phase_dense_prefill(torch, smi):
     return by_path, at_paths
 
 
+# ------------------------------------------------ SSM and hybrid training
+# phase 20: mamba2-370m and zamba2-1.2b trained at full width and depth,
+# bf16, SSM in/out projections x8 (SSM_SCALE). The training batch: 4
+# prompts of 64-480 tokens x a group of 4, 64 sampled tokens, so rows of up
+# to 544 tokens: two whole chunks of 256 and a third the scan pads
+SSM_TRAIN_PROMPT_PAD = 480
+SSM_TRAIN_MAX_NEW = 64
+# The two routes of one SSM block at one tree, bf16: the training forward
+# differentiates the plain float32 scan, the kernel route runs the
+# intra-chunk kernel (its float32 sums in another order); each layer
+# rounds y to bf16, so the routes part by bf16 roundings carried through
+# 48 (38) layers. Held like the engines' behaviour logps (phase 4's bf16
+# tolerance); a reference that drops the state carried into the second
+# chunk must fail it.
+SSM_ROUTE_LOGP_TOL = ENGINE_LOGP_TOL
+# The SSM leaves' gradients at full width, 2 layers, float32, on the card
+# against the same step on the CPU: the same float32 products summed in
+# another order (cuBLAS against the CPU's GEMMs, the logprob kernel against
+# its plain version): |card - cpu| <= rtol (|cpu| + max|cpu|)
+SSM_F32_LAYERS = 2
+SSM_F32_GRAD_RTOL = 1e-3
+SSM_LEAVES = ("a_log", "conv_b", "conv_w", "d_skip", "dt_bias", "in_proj",
+              "norm", "out_proj")
+# the loops: mamba2 through the sim engine sampled at top-p 0.9 (the
+# sampler's cutoff path), zamba2 through --engine async
+SSM_LOOP = {"mamba2-370m": ("sim", 0.9), "zamba2-1.2b": ("async", 1.0)}
+SSM_LOOP_STEPS = 4
+SSM_LOOP_STALENESS = 2
+SSM_TRAIN_PATH = ("ssd_decode_step", "ssd_intra_chunk",
+                  "token_logprob_entropy", "token_logprob_entropy_bwd",
+                  "a3po_loss", "a3po_loss_bwd")
+# zamba2's shared attention in the rollout (B 16, ~500 keys, H 32 = KV 32,
+# hd 64) attends flatly at its init std, so a dense decode one key short,
+# or without its top-scoring key, may stay within the bf16 tolerance; a
+# kernel that read only the first half of each row's keys must not
+SSM_DECODE_WRONG = ("top_key_dropped", "half_the_keys")
+
+
+def _ssd_sites():
+    """``_capture_ops`` sites of the two SSD kernel ops: the intra-chunk op
+    where ``ssd_scan`` looks it up, the decode step where the model's
+    one-token step does."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import ssm
+    return {"ssd_intra_chunk": (sops, "ssd_intra_chunk_cum"),
+            "ssd_decode_step": (ssm, "ssd_decode_step")}
+
+
+def _hold_ssd_kernels(torch, seen):
+    """The two SSD kernel ops held against their plain versions in float32
+    on the inputs of their last call in a run (``_hold_ssd_decode``,
+    ``_hold_ssd_intra``). The path's chunks may end on pad steps, so cdec's
+    wrong reference leaves out the chunk's first decay. Returns the
+    records."""
+    recs = {}
+    with torch.no_grad():
+        if "ssd_intra_chunk" in seen:
+            (xdt, la, b, c, L), _ = seen["ssd_intra_chunk"]
+            B, S, nh, hd = xdt.shape
+            recs["ssd_intra_chunk"] = {
+                "name": "ssd_intra_chunk", "dtype": str(b.dtype),
+                "shape": {"B": B, "S": S, "chunk": L, "nh": nh, "hd": hd,
+                          "ds": b.shape[-1]},
+                **_hold_ssd_intra(torch, xdt, la, b, c, L,
+                                  cdec_wrong="first_decay_dropped")}
+        if "ssd_decode_step" in seen:
+            (state, x, dt, a_log, b, c), _ = seen["ssd_decode_step"]
+            recs["ssd_decode_step"] = {
+                "name": "ssd_decode_step", "dtype": str(x.dtype),
+                "shape": {"B": state.shape[0], "nh": state.shape[1],
+                          "hd": state.shape[2], "ds": state.shape[3]},
+                **_hold_ssd_decode(torch, state, x, dt, a_log, b, c)[2]}
+    return recs
+
+
+def _time_ssd_path(torch, seen, label):
+    """The SSD kernel ops timed on the inputs of their last call in a run
+    (``_ssd_intra_times``, ``_ssd_decode_times``). Returns {kernel name:
+    record}, the records also printed."""
+    timer = Timer(torch)
+    out = {}
+    with torch.no_grad():
+        if "ssd_intra_chunk" in seen:
+            (xdt, la, b, c, L), _ = seen["ssd_intra_chunk"]
+            B, S, nh, hd = xdt.shape
+            out["ssd_intra_chunk"] = {
+                "phase": "kernel", "name": "ssd_intra_chunk", "case": label,
+                "dtype": str(b.dtype).split(".")[-1],
+                "shape": {"B": B, "S": S, "chunk": L, "nh": nh, "hd": hd,
+                          "ds": b.shape[-1]},
+                **_ssd_intra_times(torch, timer, xdt, la, b, c, L, 10, 3)}
+        if "ssd_decode_step" in seen:
+            (state, x, dt, a_log, b, c), _ = seen["ssd_decode_step"]
+            out["ssd_decode_step"] = {
+                "phase": "kernel", "name": "ssd_decode_step", "case": label,
+                "dtype": str(x.dtype).split(".")[-1],
+                "shape": {"B": state.shape[0], "nh": state.shape[1],
+                          "hd": state.shape[2], "ds": state.shape[3]},
+                **_ssd_decode_times(torch, timer, state.clone(), state, x,
+                                    dt, a_log, b, c)}
+    for rec in out.values():
+        emit(rec)
+    del timer
+    return out
+
+
+@contextlib.contextmanager
+def _ssd_state_dropped(torch, ssm_mod):
+    """The kernel route with the state carried into each sequence's second
+    chunk dropped: a scan that loses one chunk boundary's state."""
+    plain = ssm_mod.ssd_scan
+
+    def scan(x, dt, a_log, b, c, *, chunk, initial_state=None, **kw):
+        if x.shape[1] <= chunk:
+            return plain(x, dt, a_log, b, c, chunk=chunk,
+                         initial_state=initial_state, **kw)
+        y1, _ = plain(x[:, :chunk], dt[:, :chunk], a_log, b[:, :chunk],
+                      c[:, :chunk], chunk=chunk, initial_state=initial_state,
+                      **kw)
+        y2, st = plain(x[:, chunk:], dt[:, chunk:], a_log, b[:, chunk:],
+                       c[:, chunk:], chunk=chunk, **kw)
+        return torch.cat([y1, y2], dim=1), st
+
+    ssm_mod.ssd_scan = scan
+    try:
+        yield
+    finally:
+        ssm_mod.ssd_scan = plain
+
+
+def _ssm_route_logps(torch, cfg, params, tokens):
+    """Token logps [B, T-1] through the training forward's route: detached
+    views of every leaf that require a gradient, gradients enabled (the
+    differentiable scan), no backward. Fails if the intra-chunk kernel
+    ran."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.optimizer import flatten, unflatten
+    n0 = sops.LAUNCHES["ssd_intra_chunk"]
+    views = {k: v.detach().requires_grad_(True)
+             for k, v in flatten(params).items()}
+    with torch.enable_grad():
+        lp = trainer_mod._score_tokens(unflatten(views), cfg, tokens)[0]
+    if sops.LAUNCHES["ssd_intra_chunk"] != n0:
+        raise AssertionError("the grad-enabled forward ran the intra-chunk "
+                             "kernel")
+    return lp.detach()
+
+
+def _ssm_f32_grads(torch, name, tokens):
+    """Full width, SSM_F32_LAYERS layers, float32: the gradient of a seeded
+    linear function of the token logps and entropies with respect to every
+    SSM leaf, on the card and on the CPU from the same weights; then one
+    Adam step (RLConfig's defaults) of those leaves on the card, which must
+    move every one of them (in float32 an lr-sized step is not rounded
+    away, as it is at bf16 leaves near 1). Returns the record."""
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.optimizer import (
+        adam_init,
+        adam_update,
+        flatten,
+        unflatten,
+    )
+    cfg = dataclasses.replace(get_config(name), num_layers=SSM_F32_LAYERS,
+                              dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(21), device="cpu",
+                        requires_grad=True)
+    with torch.no_grad():
+        _scale_ssm(cpu, SSM_SCALE[name])
+    g = torch.Generator().manual_seed(22)
+    gl, ge = torch.randn(2, *tokens[:, 1:].shape, generator=g)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        views = {k: v.detach().to(dev).requires_grad_(True)
+                 for k, v in flatten(cpu).items()}
+        lp, en, _ = trainer_mod._score_tokens(unflatten(views), cfg,
+                                              tokens.to(dev))
+        loss = (lp * gl.to(dev)).sum() + (en * ge.to(dev)).sum()
+        keys = [k for k in views if "/ssm/" in f"/{k}"]
+        gs = torch.autograd.grad(loss, [views[k] for k in keys])
+        if dev == "cuda":
+            leaves = unflatten({k: views[k].detach() for k in keys})
+            new, _, _ = adam_update(unflatten(dict(zip(keys, gs))),
+                                    adam_init(leaves), leaves, RLConfig())
+            new = flatten(new)
+            moved = {k: (new[k] != views[k]).float().mean().item()
+                     for k in keys}
+            del leaves, new
+        grads[dev] = dict(zip(keys, (t.cpu() for t in gs)))
+        del views, lp, en, loss, gs
+    rec = {"layers": SSM_F32_LAYERS, "tokens": list(tokens.shape),
+           "rtol": SSM_F32_GRAD_RTOL, "leaves": {}}
+    bad = [k for k, share in moved.items() if not share > 0]
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        scale = ref.abs().max().item()
+        ratio = ((got - ref).abs() / (SSM_F32_GRAD_RTOL * (
+            ref.abs() + scale))).max().item()
+        rec["leaves"][k.rsplit("/", 1)[-1]] = {
+            "err_over_tol": ratio, "max_abs": scale,
+            "adam_step_moved_share": moved[k]}
+        if not (ratio <= 1.0 and scale > 0
+                and bool(torch.isfinite(got).all())):
+            bad.append(k)
+    if sorted(rec["leaves"]) != sorted(SSM_LEAVES) or bad:
+        raise AssertionError(f"{name} float32 card vs CPU gradients or "
+                             f"Adam step {bad}: {rec}")
+    return rec
+
+
+def _ssm_train_step_program(torch, cfg, params, rb):
+    """(b) for one SSM stack: launch/steps.py's make_train_step (A-3PO, 4
+    microbatches) on the rollout's batch with seeded advantages, the
+    counts at 0 just before it: loss, entropy and gradient norm finite,
+    the parameters moved, the logprob and A-3PO kernels launched and the
+    intra-chunk kernel not. Returns (record, launches)."""
+    import numpy as np
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.launch import steps
+    from repro_torch.training import adam_init
+    step = steps.make_train_step(cfg, RLConfig(), "a3po",
+                                 num_microbatches=STEPS_MICRO)
+    batch = _steps_batch(torch, rb, np)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    new, _, loss, ent, gn = step(params, adam_init(params), batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _path_counts(SSM_TRAIN_PATH)
+    changed, total = _changed(torch, params, new)
+    rec = {"seconds": secs, "loss": float(loss), "entropy": float(ent),
+           "grad_norm": float(gn), "params_changed": changed,
+           "params_total": total, "batch": list(batch["tokens"].shape),
+           "microbatches": STEPS_MICRO, "launches": launches}
+    if not all(math.isfinite(rec[k]) for k in ("loss", "entropy",
+                                                "grad_norm")) \
+            or changed == 0 or launches["ssd_intra_chunk"] != 0 \
+            or launches["ssd_decode_step"] != 0 \
+            or min(launches[k] for k in SSM_TRAIN_PATH[2:]) <= 0:
+        raise AssertionError(f"{cfg.name} make_train_step: {rec}")
+    return rec, launches
+
+
+def _ssm_trainer(torch, name, smi):
+    """(a, b) ``name`` at full width and depth, bf16, SSM projections x8:
+    4 prompts x a group of 4 sampled through the dense RolloutEngine
+    (version 0, seeded Bernoulli rewards), then one a3po Trainer.step at
+    staleness 1 and one recompute step after it; for mamba2 also the step
+    program. A hybrid stack's rollout runs its shared attention through
+    flash (prefill) and dense decode, which join the path's kernels.
+    Returns (launches by path, times by path)."""
+    import numpy as np
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.rollout.engine import RolloutEngine
+    from repro_torch.training import (
+        Trainer,
+        TrainState,
+        adam_init,
+        assemble_train_batch,
+    )
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.optimizer import flatten
+    from repro_torch.training.trainer import METRIC_KEYS
+
+    cfg = get_config(name)
+    path = SSM_TRAIN_PATH + (DENSE_ROLLOUT_PATH if "attn" in cfg.block_kinds()
+                             else ())
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+    with torch.no_grad():
+        _scale_ssm(params, SSM_SCALE[name])
+    rng = np.random.default_rng(14)
+    prompts, lengths = _ragged_prompts(cfg, TRAIN_PROMPTS,
+                                       SSM_TRAIN_PROMPT_PAD, 15)
+    prompts = np.repeat(prompts, GROUP, axis=0)
+    lengths = np.repeat(lengths, GROUP)
+    engine = RolloutEngine(cfg, RLConfig(temperature=1.0, top_p=1.0),
+                           max_new_tokens=SSM_TRAIN_MAX_NEW)
+    rl = RLConfig(group_size=GROUP, num_minibatches=4)
+    trainers = {a: Trainer(cfg, rl, a) for a in ("a3po", "recompute")}
+    state = TrainState(params, adam_init(params),
+                       torch.ones((), dtype=torch.int32, device="cuda"))
+    prox_seen = {}
+    plain_prox = trainer_mod.recompute_prox_logp
+
+    def prox_kept(p, cfg_, tokens):
+        prox_seen["logp"] = plain_prox(p, cfg_, tokens)
+        return prox_seen["logp"]
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    trainer_mod.recompute_prox_logp = prox_kept
+    try:
+        with _capture_ops(torch, {**_dense_sites(train=True),
+                                  **_ssd_sites()}) as seen:
+            t0 = time.perf_counter()
+            rb = engine.generate(params, prompts, lengths,
+                                 torch.Generator(device="cuda").manual_seed(
+                                     16), version=0)
+            serve_s = time.perf_counter() - t0
+            gen = _check_generated(np, rb, f"{name} rollout")
+            batch = assemble_train_batch(
+                [rb], rng.binomial(1, 0.5, len(lengths)).astype(np.float32),
+                device="cuda")
+            for algo in ("a3po", "recompute"):
+                before = state
+                # Adam's float32 first moment, updated in place: a leaf
+                # got a gradient in this step iff its m is not b1 * m
+                m_old = {k: rl.adam_b1 * v for k, v in
+                         flatten(state.opt["m"]).items()}
+                n0 = sops.LAUNCHES["ssd_intra_chunk"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, m = trainers[algo].step(state, batch)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                _check_metrics(np, m, METRIC_KEYS)
+                m_new = flatten(new.opt["m"])
+                no_grad = [k for k, v in m_new.items()
+                           if torch.equal(v, m_old[k])
+                           or not bool(torch.isfinite(v).all())]
+                del m_old, m_new
+                old, upd = flatten(state.params), flatten(new.params)
+                # bf16 leaves of size ~1 (norm scales, d_skip, dt_bias)
+                # round an lr-sized update away: reported, not failed
+                still = [k for k in old if torch.equal(old[k], upd[k])]
+                intra = sops.LAUNCHES["ssd_intra_chunk"] - n0
+                rec = {"algo": algo, "seconds": secs,
+                       "prox_time_s": m["prox_time_s"],
+                       "staleness": m["staleness_mean"],
+                       "leaves": len(old), "leaves_without_gradient":
+                       no_grad, "leaves_unmoved_in_bf16": still,
+                       "ssd_intra_chunk_launches": intra,
+                       "host_syncs": trainers[algo].last_host_syncs,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9,
+                       "metrics": {k: m[k] for k in METRIC_KEYS}}
+                n_ssm = cfg.block_kinds().count("ssm")
+                if no_grad or len(still) == len(old) \
+                        or m["staleness_mean"] != len(steps) + 1 \
+                        or intra != (n_ssm if algo == "recompute" else 0) \
+                        or (algo == "a3po" and m["iw_mean"] != 1.0):
+                    raise AssertionError(f"{name} {algo} step: {rec}")
+                steps.append(rec)
+                state = new
+    finally:
+        trainer_mod.recompute_prox_logp = plain_prox
+    launches = _path_counts(path)
+    if min(launches.values()) <= 0 \
+            or any(k not in seen for k in path if not k.endswith("_bwd")):
+        raise AssertionError(f"{name} training launches {launches}")
+
+    # (a) the routes at recompute's parameters: its prox logps (the kernel
+    # route, captured in the step) against the training forward's route,
+    # and a kernel route that drops the state into the second chunk
+    parts = {}
+    t0 = time.perf_counter()
+    mask = batch.response_mask > 0
+    with torch.no_grad():
+        grad_route = _ssm_route_logps(torch, cfg, before.params, batch.tokens)
+        with _ssd_state_dropped(torch, ssm_mod):
+            wrong = trainer_mod.score_tokens(before.params, cfg,
+                                             batch.tokens)[0]
+    gaps = {k: (v - grad_route)[mask].abs() for k, v in (
+        ("prox", prox_seen["logp"]), ("state_dropped", wrong))}
+    routes = {"tol": SSM_ROUTE_LOGP_TOL, "tokens": int(mask.sum()),
+              "max_abs_gap": gaps["prox"].max().item(),
+              "mean_abs_gap": gaps["prox"].mean().item(),
+              "wrong_state_dropped_max_abs_gap":
+                  gaps["state_dropped"].max().item(),
+              "wrong_state_dropped_mean_abs_gap":
+                  gaps["state_dropped"].mean().item()}
+    if not (routes["max_abs_gap"] <= SSM_ROUTE_LOGP_TOL
+            < routes["wrong_state_dropped_max_abs_gap"]):
+        raise AssertionError(f"{name}: kernel and training routes {routes}")
+    del grad_route, wrong, gaps, prox_seen
+    torch.cuda.empty_cache()
+    parts["routes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = _hold_path_kernels(torch, seen, SSM_DECODE_WRONG)
+    held.update(_hold_ssd_kernels(torch, seen))
+    parts["held_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    times = _time_path_kernels(torch, seen, f"ssm_train_{name}")
+    times.update(_time_ssd_path(torch, seen, f"ssm_train_{name}"))
+    parts["timed_s"] = time.perf_counter() - t0
+    del seen
+    t0 = time.perf_counter()
+    f32 = _ssm_f32_grads(torch, name, batch.tokens[:1].cpu())
+    parts["float32_grads_s"] = time.perf_counter() - t0
+
+    by_path = {f"ssm_train_{name}": launches}
+    program = None
+    if name == "mamba2-370m":
+        program, by_path[f"ssm_steps_{name}"] = _ssm_train_step_program(
+            torch, cfg, state.params, rb)
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainers["a3po"].step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the raw device events against prof.events() once a run (~35 s)
+    prof = _device_profile(torch, step, cross_check=name == "mamba2-370m")
+    parts["profile_s"] = time.perf_counter() - t0
+    emit({"phase": "ssm_training", "model": name, "layers": cfg.num_layers,
+          "params": cfg.num_params(), "dtype": "bfloat16",
+          "ssm_proj_scale": SSM_SCALE[name], "nvidia_smi": smi,
+          "batch": list(batch.tokens.shape), "minibatches": 4,
+          "serve_s": serve_s, "generated": gen, "steps": steps,
+          "routes": routes, "float32_grads": f32, "launches": launches,
+          "held": held, "check_seconds": parts,
+          "make_train_step": program, "a3po_step_profile": {
+              k: prof[k] for k in ("wall_s", "device_busy_s",
+                                   "device_idle_share",
+                                   "top_device_kernels", "cross_check")}})
+    del params, state, new, before, engine, batch
+    torch.cuda.empty_cache()
+    return by_path, {f"ssm_train_{name}": times}
+
+
+def _row_logps_by_stamp(torch, M, cfg, trees, toks, P, stamps):
+    """The logps of a row's generated tokens toks[P:] as the engine made
+    them across publishes: the prompt prefilled under the first token's
+    version, then each token i > 0 fed under token i's stamp (the version
+    whose step produced its logits), on one dense cache."""
+    from repro_torch.models.layers import logits_from_hidden
+    n = len(stamps)
+    tree = trees[int(stamps[0])]
+    h, cache = M.prefill(tree, cfg, toks[None, :P], max_len=P + n)
+    out = [torch.log_softmax(logits_from_hidden(
+        tree["embedding"], h[:, -1], cfg), dim=-1)[0, toks[P]]]
+    for i in range(1, n):
+        logits, cache = M.decode_step(trees[int(stamps[i])], cfg, cache,
+                                      toks[None, P + i - 1])
+        out.append(torch.log_softmax(logits, dim=-1)[0, toks[P + i]])
+    return torch.stack(out)
+
+
+def _check_stamped_behaviour(torch, M, cfg, rollouts, trees):
+    """Every behaviour logp of the control plane's rollouts against the
+    trees that made it: a row generated under one version against that
+    tree's forward_logits; a row that crossed a publish (in-flight rows
+    resume under the new tree on their cache) token by token through
+    ``_row_logps_by_stamp``."""
+    import numpy as np
+    worst, n_tok, n_mixed, logp_sum = 0.0, 0, 0, 0.0
+    dev = "cuda"
+    with torch.no_grad():
+        for rb in rollouts:
+            stamps = (rb.gen_versions if rb.gen_versions is not None
+                      else np.full(rb.gen_logp.shape, rb.version))
+            toks = torch.as_tensor(rb.tokens.astype(np.int64), device=dev)
+            rows = {}
+            for b in range(rb.batch_size):
+                n = int(rb.gen_mask[b].sum())
+                vs = stamps[b, :n]
+                if n and (vs == vs[0]).all():
+                    rows.setdefault(int(vs[0]), []).append(b)
+                elif n:
+                    P = int(rb.prompt_lengths[b])
+                    ref = _row_logps_by_stamp(torch, M, cfg, trees, toks[b],
+                                              P, vs).cpu().numpy()
+                    worst = max(worst, float(np.abs(
+                        ref - rb.gen_logp[b, :n]).max()))
+                    n_mixed += n
+            for v, bs in rows.items():
+                lp = torch.log_softmax(M.forward_logits(
+                    trees[v], cfg, toks[bs, :-1]), dim=-1)
+                for i, b in enumerate(bs):
+                    P = int(rb.prompt_lengths[b])
+                    n = int(rb.gen_mask[b].sum())
+                    ref = lp[i, P - 1: P - 1 + n].gather(
+                        -1, toks[b, P: P + n, None])[:, 0].cpu().numpy()
+                    worst = max(worst, float(np.abs(
+                        ref - rb.gen_logp[b, :n]).max()))
+            for b in range(rb.batch_size):
+                n = int(rb.gen_mask[b].sum())
+                n_tok += n
+                logp_sum += float(rb.gen_logp[b, :n].sum())
+    out = {"batches": len(rollouts), "tokens_checked": n_tok,
+           "tokens_across_publishes": n_mixed,
+           "behaviour_logp_max_abs_err": worst,
+           "mean_behaviour_logp": logp_sum / max(n_tok, 1),
+           "logp_tol": ENGINE_LOGP_TOL, "max_mean_logp": MAX_MEAN_LOGP,
+           "versions": sorted(trees)}
+    if n_tok == 0 or worst > ENGINE_LOGP_TOL \
+            or out["mean_behaviour_logp"] > MAX_MEAN_LOGP:
+        raise AssertionError(f"stamped behaviour: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_async_run(torch):
+    """Record, from an --engine async run, every tree the orchestrator's
+    weight store held (by version) and every RolloutBatch the control
+    plane returned."""
+    from repro_torch.async_rl import orchestrator
+    from repro_torch.serving.control_plane import ServingControlPlane
+    kept = {"trees": {}, "rollouts": []}
+    plain_store = orchestrator.WeightStore
+    plain_gen = ServingControlPlane.generate_batch
+
+    class Store(plain_store):
+        def __init__(self, params, version=0):
+            super().__init__(params, version)
+            kept["trees"][version] = params
+
+        def publish(self, params, version):
+            kept["trees"][version] = params
+            super().publish(params, version)
+
+    def generate_batch(self, *args, **kw):
+        rb = plain_gen(self, *args, **kw)
+        kept["rollouts"].append(rb)
+        return rb
+
+    orchestrator.WeightStore = Store
+    ServingControlPlane.generate_batch = generate_batch
+    try:
+        yield kept
+    finally:
+        orchestrator.WeightStore = plain_store
+        ServingControlPlane.generate_batch = plain_gen
+
+
+def _ssm_loop(torch, name, tmp):
+    """(c) The launcher on ``name`` at full size, a3po, seeded Bernoulli
+    rewards, SSM projections x8: mamba2 with --engine sim at staleness 2,
+    sampled at top-p 0.9; zamba2 with --engine async. Every behaviour logp
+    against forward_logits of the tree that made it; each kernel op of
+    the path held against its plain version on its last call and timed
+    there. Returns (path name, launches, times)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.obs.runlog import read_jsonl
+
+    engine, top_p = SSM_LOOP[name]
+    cfg = get_config(name)
+    path = str(tmp / f"ssm_{name}.jsonl")
+    argv = ["--arch", name, "--steps", str(SSM_LOOP_STEPS), "--algo",
+            "a3po", "--engine", engine, "--log-jsonl", path, "--quiet"]
+    kept = {}
+
+    def scale(p):
+        _scale_ssm(p, SSM_SCALE[name])
+    kinds = ["ssd_decode_step", "ssd_intra_chunk", "token_logprob_entropy",
+             "token_logprob_entropy_bwd", "a3po_loss", "a3po_loss_bwd"]
+    torch.cuda.reset_peak_memory_stats()
+    if engine == "sim":
+        argv += ["--staleness", str(SSM_LOOP_STALENESS)]
+        with _scaled_launcher(torch, train, cfg, kept, scale=scale,
+                              top_p=top_p), \
+                _capture_path(torch, extra=_ssd_sites()) as seen:
+            _reset_counts()
+            t0 = time.perf_counter()
+            train.main(argv)
+            elapsed = time.perf_counter() - t0
+            counts = _path_counts(kinds)
+        t_checks = time.perf_counter()
+        rollouts, trees = seen.pop("rollouts"), seen.pop("trees")
+        behaviour = _check_behaviour(torch, M, cfg, rollouts,
+                                     kept["state"].params, trees,
+                                     SSM_LOOP_STALENESS)
+    else:
+        kinds += ["paged_decode_attention", "paged_prefill_attention"]
+        with _scaled_orchestrator(torch, train, kept, scale=scale), \
+                _recorded_async_run(torch) as run, \
+                _capture_ops(torch, {**_paged_sites(), **_ssd_sites(),
+                                     **_dense_sites(train=True)}) as seen:
+            _reset_counts()
+            t0 = time.perf_counter()
+            train.main(argv)
+            elapsed = time.perf_counter() - t0
+            counts = _path_counts(kinds)
+        t_checks = time.perf_counter()
+        behaviour = _check_stamped_behaviour(torch, M, cfg, run["rollouts"],
+                                             run["trees"])
+        orch = kept["orch"]
+        behaviour["worker_crashes"] = len(orch.worker.crashes)
+        if orch.worker.crashes or orch.worker.alive:
+            raise AssertionError(f"{name} --engine async worker: "
+                                 f"{orch.worker.crashes}")
+        del run
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    recs = read_jsonl(path)
+    _check_records(np, recs, f"{name} {engine}")
+    rec = {"phase": "ssm_loop", "model": name, "engine": engine,
+           "top_p": top_p, "rewards": "seeded Bernoulli(0.5)",
+           "ssm_proj_scale": SSM_SCALE[name], "steps": len(recs),
+           "elapsed_s": elapsed, "steps_per_s": len(recs) / elapsed,
+           "staleness": [r["staleness_mean"] for r in recs],
+           "host_syncs": [r["host_syncs"] for r in recs],
+           "rollout_s": [r["rollout_time_s"] for r in recs],
+           "train_s": [r["train_time_s"] for r in recs],
+           "reward": [r["reward"] for r in recs],
+           "loss": [r["loss"] for r in recs],
+           "peak_mem_gb": peak, "launches": counts, **behaviour}
+    emit(rec)
+    stale_ok = (rec["staleness"] == [0.0, 1.0, 2.0, 2.0] if engine == "sim"
+                else all(0 <= s <= SSM_LOOP_STALENESS + 1
+                         for s in rec["staleness"]))
+    if len(recs) != SSM_LOOP_STEPS or not stale_ok \
+            or rec["host_syncs"] != [1.0] * SSM_LOOP_STEPS \
+            or min(counts.values()) <= 0 \
+            or any(k not in seen for k in kinds if not k.endswith("_bwd")):
+        raise AssertionError(f"{name} loop: {rec}")
+    label = f"ssm_{engine}_{name}"
+    held = _hold_path_kernels(torch, seen)
+    held.update(_hold_ssd_kernels(torch, seen))
+    held.update(_hold_paged_kernels(torch, seen))
+    times = _time_path_kernels(torch, seen, label)
+    times.update(_time_ssd_path(torch, seen, label))
+    times.update(_time_paged(torch, seen, label))
+    emit({"phase": "ssm_loop_checks", "model": name, "kernels": held,
+          "seconds": time.perf_counter() - t_checks})
+    del seen, kept
+    torch.cuda.empty_cache()
+    return label, counts, times
+
+
+def phase_ssm_training(torch, tmp, smi):
+    """Phase 20: SSM and hybrid training on the card, each path driven with
+    the counts set to 0 just before it. Returns (launches by path, times
+    by path)."""
+    t_phase = time.perf_counter()
+    by_path, at_paths = {}, {}
+    for name in SSM_SCALE:
+        launches, times = _ssm_trainer(torch, name, smi)
+        by_path.update(launches)
+        at_paths.update(times)
+        label, by_path_loop, times = _ssm_loop(torch, name, tmp)
+        by_path[label], at_paths[label] = by_path_loop, times
+    emit({"phase": "ssm_training_phase", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    return by_path, at_paths
+
+
+def _release(torch):
+    """Free what the last phase left: the cycles that still hold device
+    tensors (a phase's closures, its engine and trainer), then the
+    allocator's cache. Without the collection, when such a cycle is freed
+    depends on when Python's collector happens to run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -5806,22 +6599,22 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
     with torch.no_grad():
         kernels = phase_kernels(torch)
         launches = phase_engine(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     kernels.update(phase_training_kernels(torch))
-    torch.cuda.empty_cache()
+    _release(torch)
     launches.update({k: v for k, v in phase_training(torch).items()
                      if k not in launches})
     phase_training_f32(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     with torch.no_grad():
         kernels.update(phase_dense_kernels(torch))
-    torch.cuda.empty_cache()
+    _release(torch)
     launches.update(phase_rollout(torch))
     with tempfile.TemporaryDirectory() as tmp:
         phase_async_rl(torch, Path(tmp))
-        torch.cuda.empty_cache()
+        _release(torch)
         cp_launches = phase_control_plane(torch, Path(tmp))
-        torch.cuda.empty_cache()
+        _release(torch)
         # the fault-tolerance runtime and the load harness, each path
         # driven with the counts set to 0 just before it
         by_path = {"resume": phase_resume(torch, Path(tmp)),
@@ -5832,18 +6625,19 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
             torch, Path(tmp), smi)
     at_paths = {"engine_async_faults": async_times,
                 "loadgen_replay": loadgen_times}
-    torch.cuda.empty_cache()
+    _release(torch)
     with torch.no_grad():
         kernels.update(phase_ssd_kernels(torch))
         ssm = [phase_ssm_serving(torch, name) for name in SSM_SCALE]
     for k in ("ssd_decode_step", "ssd_intra_chunk"):
         launches[k] = sum(run[k] for run in ssm)
-    torch.cuda.empty_cache()
+    _release(torch)
     # the MoE, MLA and frontend stacks, each path driven with the counts
     # set to 0 just before it
     with torch.no_grad():
         by_path["moe_rollout"], at_paths["moe_rollout"] = phase_moe_serving(
             torch)
+    _release(torch)  # the launcher's subprocess needs 64.8 GB
     phase_serve_launcher(torch)
     for name in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"):
         by_path[f"moe_train_{name}"], at_paths[f"moe_train_{name}"] = \
@@ -5852,7 +6646,7 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
         for name in ("llava-next-mistral-7b", "musicgen-large"):
             by_path[f"frontend_{name}"], at_paths[f"frontend_{name}"] = \
                 phase_frontend(torch, name)
-    torch.cuda.empty_cache()
+    _release(torch)
     # the examples, each path driven with the counts set to 0 just before
     # it, then train_async_rl's path at full width
     t_examples = time.perf_counter()
@@ -5862,14 +6656,19 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
     at_paths.update(full_times)
     emit({"phase": "examples_phase", "seconds":
           time.perf_counter() - t_examples})
-    torch.cuda.empty_cache()
+    _release(torch)
     by_path["steps"], at_paths["steps"] = phase_steps(torch, dry_tmp,
                                                       dry_procs)
-    torch.cuda.empty_cache()
+    _release(torch)
     with torch.no_grad():
         dp_launches, dp_times = phase_dense_prefill(torch, smi)
     by_path.update(dp_launches)
     at_paths.update(dp_times)
+    _release(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        ssm_launches, ssm_times = phase_ssm_training(torch, Path(tmp), smi)
+    by_path.update(ssm_launches)
+    at_paths.update(ssm_times)
     src = {"paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
         "src/repro/kernels/decode_attn/paged_kernel.py:69"),

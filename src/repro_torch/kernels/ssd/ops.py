@@ -4,15 +4,18 @@ on them (``repro.kernels.ssd.ops``).
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``; a CUDA
 tensor takes the CUDA kernel or raises — there is no fallback. The kernels
 have no backward (the JAX package trains SSM stacks through XLA autodiff
-of its jnp scan and has no backward kernel): on a CUDA tensor that
-requires a gradient, under autograd, the ops raise. ``LAUNCHES`` counts
+of its jnp scan and has no backward kernel either): SSM training runs the
+model's own differentiable intra-chunk block inside ``ssd_scan``
+(``models.ssm.ssd_chunked`` picks it while a gradient is recorded), so on
+a CUDA tensor that requires a gradient, under autograd, these ops raise:
+a route that slipped fails loudly. ``LAUNCHES`` counts
 each kernel's launches, and nothing else; ``PLANS`` holds the launch plan
 (``kernel.decode_plan`` / ``kernel.intra_plan``, read from the CUDA
 library that computes it) of each kernel's last launch.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +47,11 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward; SSM "
-                           "training is not ported (run under "
-                           "torch.no_grad())")
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; a "
+                           "gradient through the SSD scan takes the model's "
+                           "differentiable block (models.ssm.ssd_chunked), "
+                           "so this call under autograd is a route that "
+                           "slipped")
     return True
 
 
@@ -252,7 +257,8 @@ def ssd_intra_chunk_cum(xdt: torch.Tensor, la: torch.Tensor,
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
-             initial_state: Optional[torch.Tensor] = None
+             initial_state: Optional[torch.Tensor] = None,
+             intra: Optional[Callable] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan: the intra-chunk op plus the inter-chunk recurrence
     (a loop over S / chunk in torch ops, the reference's ``lax.scan``) and
@@ -267,6 +273,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     zero xdt and zero log decay up to a multiple (the reference falls back
     to one chunk of length S instead). That is exact: a pad step leaves
     the state as it is and adds nothing, and its rows are cut off.
+    ``intra`` takes the place of ``ssd_intra_chunk_cum`` (same arguments
+    and outputs): the model's differentiable block under autograd
+    (``models.ssm.ssd_chunked``).
     """
     B, S, nh, hd = x.shape
     ds = b.shape[-1]
@@ -281,7 +290,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         c = F.pad(c, (0, 0, 0, pad))
     Sp = S + pad
     nc = Sp // L
-    y_intra, s_local, cdec, cum = ssd_intra_chunk_cum(xdt, la, b, c, L)
+    y_intra, s_local, cdec, cum = (intra or ssd_intra_chunk_cum)(
+        xdt, la, b, c, L)
     cum = cum.reshape(B, nc, L, nh)
     state = (torch.zeros((B, nh, hd, ds), dtype=torch.float32,
                          device=x.device)

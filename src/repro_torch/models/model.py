@@ -11,11 +11,14 @@ engine, ``init_cache`` / ``prefill`` / ``decode_step``. Layers are a
 Python loop over the stack (the reference scans it), each stacked leaf
 unbound once per forward (``unstack_model``); a hybrid stack runs its SSM
 blocks in order with the one shared attention block after every
-``attn_every - 1`` of them, as ``cfg.block_kinds()`` lists them. With
+``attn_every - 1`` of them, as ``cfg.block_kinds()`` lists them; the
+shared block's one parameter set is used at each of those positions, and
+its gradient accumulates across the uses, under remat too. With
 ``cfg.remat`` and gradients enabled each layer is recomputed in the
-backward (``torch.utils.checkpoint``), as the reference's remat does. The
-SSD kernels have no backward: SSM training is not ported, and a gradient
-through an SSM block on the card raises.
+backward (``torch.utils.checkpoint``), as the reference's remat does. An
+SSM block differentiates the model's plain chunked scan while a gradient
+is recorded (the training forward and its remat recompute) and runs the
+intra-chunk kernel otherwise (``models.ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -191,8 +194,9 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B,St] (+ ``embeds`` [B,F,d] for a frontend stack) ->
     (final-normed hidden [B,S,d], S = F + St, and the summed MoE
     load-balance loss, float32 0-d: zero without MoE). SSM blocks run the
-    chunked scan through the intra-chunk kernel op (on the card: no
-    gradient); attention runs the plain ``chunked_causal_attention``."""
+    differentiable plain chunked scan while a gradient is recorded and the
+    intra-chunk kernel op otherwise; attention runs the plain
+    ``chunked_causal_attention``."""
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     if positions is None:

@@ -1,13 +1,19 @@
 """Mamba2 (SSD) block (``repro.models.ssm``): the chunked scan over a whole
 sequence and the O(1) recurrent decode step.
 
-The whole-sequence block runs the chunked SSD scan of
-``kernels.ssd.ops.ssd_scan`` (the intra-chunk CUDA kernel on the card).
-That differs from the reference on purpose: its ``ssm_full`` runs the jnp
-``ssd_chunked`` and reaches no Pallas kernel; the port's ``ssd_chunked``
-is that scan. The decode step runs
-``ssd_decode_step`` (the decode CUDA kernel on the card) and updates the
-cache in place.
+The whole-sequence block runs the chunked scan of
+``kernels.ssd.ops.ssd_scan`` with one of two intra-chunk blocks, chosen
+in one place (``ssd_chunked``): while autograd records a gradient
+through the scan's operands, the model's own differentiable block
+(``_intra_chunk_autograd``, plain PyTorch in float32; with it the scan is
+the counterpart of the reference's jnp ``ssd_chunked``, which the
+reference's training differentiates); otherwise the intra-chunk op (the
+CUDA kernel on the card), which has no backward. Serving, prefill,
+scoring and ``recompute``'s no-grad prox forward therefore take the
+kernel, the training forward and its remat recompute the plain block.
+The reference's ``ssm_full`` reaches no Pallas kernel. The decode step
+runs ``ssd_decode_step`` (the decode CUDA kernel on the card) and updates
+the cache in place.
 
 The depthwise causal convolution is K shifted multiply-adds, as the
 reference writes it (never ``F.conv1d``: cuDNN runs a float32 convolution
@@ -72,13 +78,55 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
+def _intra_chunk_autograd(xdt: torch.Tensor, la: torch.Tensor,
+                          b: torch.Tensor, c: torch.Tensor, chunk: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """The scan's intra-chunk block through autograd-friendly PyTorch ops,
+    in float32: ``ops.ssd_intra_chunk_cum``'s outputs (y_intra [B,S,nh,hd],
+    s_local [B,nc,nh,hd,ds], cdec [B,nc,nh], the in-chunk cumsum ``cum``
+    [B,S,nh]) for xdt [B,S,nh,hd], la [B,S,nh] and b/c [B,S,ds], S a
+    multiple of ``chunk``:
+
+      y_intra[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
+      s_local    = sum_j exp(cum_last - cum_j) xdt_j (x) B_j
+      cdec       = exp(cum_last)
+
+    The decay is masked by select before ``exp``: exp(cum_i - cum_j) for
+    j > i overflows once a chunk's decay passes ~88, and 0 * inf in the
+    backward of a select after ``exp`` (the reference's order) makes the
+    gradient NaN.
+    """
+    B, S, nh, hd = xdt.shape
+    ds = b.shape[-1]
+    nc = S // chunk
+    # heads ahead of positions, so that the in-chunk products are batched
+    # matmuls over [B, nc, nh]
+    x = xdt.reshape(B, nc, chunk, nh, hd).transpose(2, 3)
+    cum = torch.cumsum(la.reshape(B, nc, chunk, nh), dim=2).transpose(2, 3)
+    bc = b.float().reshape(B, nc, 1, chunk, ds)
+    cc = c.float().reshape(B, nc, 1, chunk, ds)
+    seg = cum[..., :, None] - cum[..., None, :]  # [B,nc,nh,i,j]
+    i = torch.arange(chunk, device=xdt.device)
+    causal = i[:, None] >= i[None, :]
+    m = (cc @ bc.transpose(-1, -2)) * torch.exp(
+        torch.where(causal, seg, float("-inf")))
+    y = (m @ x).transpose(2, 3).reshape(B, S, nh, hd)
+    w = torch.exp(cum[..., -1:] - cum)  # [B,nc,nh,chunk]
+    s_local = (x * w[..., None]).transpose(-1, -2) @ bc
+    cdec = torch.exp(cum[..., -1])
+    return y, s_local, cdec, cum.transpose(2, 3).reshape(B, S, nh)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan, the reference's public name: it calls
-    ``kernels.ssd.ops.ssd_scan``, the scan ``ssm_full`` runs (the
-    intra-chunk kernel on the card).
+    """Chunked SSD scan, the reference's public name and the scan
+    ``ssm_full`` runs: ``kernels.ssd.ops.ssd_scan``, whose intra-chunk
+    block is the model's differentiable one (``_intra_chunk_autograd``)
+    while a gradient is recorded through the operands and the intra-chunk
+    op (the kernel on the card, which has no backward) otherwise.
 
     x [B,S,nh,hd] (conv'd, head-split), dt [B,S,nh] (softplus'd), b, c
     [B,S,ds] (one group) -> (y [B,S,nh,hd], final state [B,nh,hd,ds]
@@ -86,8 +134,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     padded to whole chunks, where the reference takes one chunk of S: the
     same values (``ssd_scan``).
     """
+    # the differentiable block while autograd records a gradient through
+    # the operands; the remat recompute (torch.utils.checkpoint,
+    # non-reentrant) reruns the block with gradients enabled on the same
+    # leaves, so it takes the same route
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, dt, a_log, b, c, initial_state))
+    intra = _intra_chunk_autograd if grad else None
     return ssd_scan(x, dt, a_log, b, c, chunk=chunk,
-                    initial_state=initial_state)
+                    initial_state=initial_state, intra=intra)
 
 
 def ssm_full(params, x: torch.Tensor, cfg: ModelConfig,
@@ -133,8 +189,8 @@ def ssm_full(params, x: torch.Tensor, cfg: ModelConfig,
         # padded steps must not advance the state: dt = 0 => a = 1, no input
         dt = dt * pad_mask[..., None].to(dt.dtype)
 
-    y, state = ssd_scan(xh, dt, params["a_log"], b, c, chunk=s.chunk_size,
-                        initial_state=init_state)
+    y, state = ssd_chunked(xh, dt, params["a_log"], b, c, s.chunk_size,
+                           initial_state=init_state)
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = _gated_norm(y.reshape(B, S, din), z, params["norm"], cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"])

@@ -27,16 +27,26 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     logits = logits.float() / max(temperature, 1e-6)
     logp_full = torch.log_softmax(logits, dim=-1)
     if top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        # keep the smallest prefix with cumulative mass >= top_p
-        cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
-        cutoff = sorted_logits.gather(-1, cutoff_idx)
-        logits = torch.where(logits < cutoff, -torch.inf, logits)
+        logits = top_p_filter(logits, top_p)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     token = torch.argmax(logits + gumbel, dim=-1)
     return token, logp_full.gather(-1, token[:, None])[:, 0]
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """logits [B, V] float32 with every token outside the row's nucleus
+    (the smallest prefix, by descending logit, whose cumulative mass
+    reaches ``top_p``) set to -inf. Where rounding leaves the whole row's
+    mass below ``top_p`` the cutoff is the smallest logit and nothing is
+    masked, as in the reference, whose out-of-range take fills NaN there
+    (an index past V would be a device-side assert on the card)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp_max(
+        logits.shape[-1] - 1)
+    cutoff = sorted_logits.gather(-1, cutoff_idx)
+    return torch.where(logits < cutoff, -torch.inf, logits)
 
 
 def greedy_token(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,8 +21,8 @@ scheduler instead of hoping the queue stays shallow):
   their refcounted blocks.
 
 Every drop carries a reason on the request (``staleness_budget``,
-``max_preempts``; an SLO-aware subclass, the reference's ``loadgen.slo``,
-which is not ported yet, adds ``slo_shed``), and every preemption a
+``max_preempts``; the SLO-aware subclass in ``repro_torch.loadgen.slo``
+adds ``slo_shed``), and every preemption a
 reason in ``preempt_reasons`` — the control plane folds both into
 per-reason ``ServingMetrics`` counters.
 """

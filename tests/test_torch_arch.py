@@ -238,12 +238,13 @@ def test_rollout_engine_greedy_matches_jax(arch, models):
     assert len(set(t.tokens[:, 9:].reshape(-1).tolist())) > 3
 
 
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", MOE + ("mamba2-370m", "zamba2-1.2b"))
 def test_train_step_matches_jax(arch):
     """One a3po step from JAX-initialised weights (the MoE load-balance
-    loss enters the loss and its gradient): every metric and parameter
-    within rtol 2e-4, as tests/test_torch_training.py holds the dense
-    stacks."""
+    loss enters the loss and its gradient; the SSM and hybrid stacks
+    differentiate the port's plain chunked scan against JAX's autodiff of
+    its jnp scan): every metric and parameter within rtol 2e-4, as
+    tests/test_torch_training.py holds the dense stacks."""
     jcfg = _f32(jregistry.get_config(arch + "-reduced"))
     tcfg = _f32(registry.get_config(arch + "-reduced"))
     jparams = jax.device_get(jmodel.init_params(jcfg, jax.random.PRNGKey(3)))
@@ -279,9 +280,10 @@ def test_train_step_matches_jax(arch):
     for path, v in walk(ts.params):
         np.testing.assert_allclose(v.detach().numpy(), jflat["/".join(path)],
                                    rtol=2e-4, atol=1e-6, err_msg=str(path))
-    # the aux the step adds to the loss is far above the tolerances
-    _, _, aux = ttr._score_tokens(tp, tcfg, _t(tokens).long())
-    assert float(aux.detach()) > 1e-3
+    if arch in MOE:
+        # the aux the step adds to the loss is far above the tolerances
+        _, _, aux = ttr._score_tokens(tp, tcfg, _t(tokens).long())
+        assert float(aux.detach()) > 1e-3
 
 
 # ------------------------------------------------------------ registry
