@@ -1426,6 +1426,8 @@ def _device_profile(torch, run, cross_check=False):
     events are read from the profiler's raw results: building
     ``prof.events()`` (every CPU op's FunctionEvent and the op tree) takes
     ~0.25 ms an event on the card's host, tens of seconds for a step.
+    A program span's device-side range (a ``record_function`` while the
+    profiler records) is no operation and does not count.
     ``cross_check`` builds it all the same and fails unless its device
     events give the same names, counts and sums (``cross_check`` in the
     result: the events compared and the seconds the check took)."""
@@ -1439,7 +1441,8 @@ def _device_profile(torch, run, cross_check=False):
     spans, by_ns = [], {}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA \
-                or getattr(ev, "is_hidden_event", lambda: False)():
+                or getattr(ev, "is_hidden_event", lambda: False)() \
+                or ev.is_user_annotation():
             continue
         t0, t1 = ev.start_ns(), ev.end_ns()
         spans.append((t0, t1))
@@ -1453,7 +1456,8 @@ def _device_profile(torch, run, cross_check=False):
         t_check = time.perf_counter()
         old = {}
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
+            if ev.device_type == DeviceType.CUDA \
+                    and not getattr(ev, "is_user_annotation", False):
                 us, n = old.get(ev.name, (0.0, 0))
                 old[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
         differ = sorted(k for k in set(old) | set(by_name)

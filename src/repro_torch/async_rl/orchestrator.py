@@ -55,7 +55,6 @@ from repro_torch.obs.tracing import (
     flow_end,
     flow_start,
     span,
-    step_annotation,
 )
 from repro_torch.resilience.faults import resilience_snapshot
 from repro_torch.resilience.publish import ResilientPublisher
@@ -333,28 +332,26 @@ class AsyncOrchestrator:
             for step in range(start_step, num_steps):
                 if faults is not None:
                     faults.maybe_crash("train_crash")
-                with step_annotation(step):
-                    batches = pop_with_health(
-                        self.queue, self.worker, version, n=1,
-                        deadline_s=deadline)
-                    rewards = np.concatenate([b.rewards for b in batches])
-                    rewards = _inject_nan_reward(rewards, faults)
-                    tb = assemble_train_batch(batches, rewards,
-                                              device=device)
-                    t0 = time.perf_counter()
-                    with span("train_step", step=step):
-                        state, m = self.trainer.step(state, tb)
-                    train_t = time.perf_counter() - t0
-                    state = self._apply_guard(state, m)
-                    version += 1  # Trainer.step advances it by one
-                    with span("weight_publish", version=version):
-                        if publisher is not None:
-                            publisher.publish(state.params, version)
-                        else:
-                            store.publish(state.params, version)
-                        # open the publish->resume flow arrow (closed by
-                        # the first rollout/serving step under `version`)
-                        flow_start("publish", version)
+                batches = pop_with_health(
+                    self.queue, self.worker, version, n=1,
+                    deadline_s=deadline)
+                rewards = np.concatenate([b.rewards for b in batches])
+                rewards = _inject_nan_reward(rewards, faults)
+                tb = assemble_train_batch(batches, rewards, device=device)
+                t0 = time.perf_counter()
+                with span("train_step", step=step):
+                    state, m = self.trainer.step(state, tb)
+                train_t = time.perf_counter() - t0
+                state = self._apply_guard(state, m)
+                version += 1  # Trainer.step advances it by one
+                with span("weight_publish", version=version):
+                    if publisher is not None:
+                        publisher.publish(state.params, version)
+                    else:
+                        store.publish(state.params, version)
+                    # open the publish->resume flow arrow (closed by
+                    # the first rollout/serving step under `version`)
+                    flow_start("publish", version)
                 self._checkpoint(step, state)
                 serving = (self.control_plane.metrics.snapshot()
                            if self.control_plane is not None else None)
@@ -454,8 +451,7 @@ def simulate_async(cfg: ModelConfig, rl: RLConfig, task: ArithmeticTask,
         rewards = _inject_nan_reward(rewards, faults)
         tb = assemble_train_batch([rb], rewards, device=device)
         t0 = time.perf_counter()
-        with step_annotation(step), span("train_step", step=step,
-                                         staleness=staleness):
+        with span("train_step", step=step, staleness=staleness):
             state, m = trainer.step(state, tb)
         train_t = time.perf_counter() - t0
         if guard is not None and guard.after_step(m).action == "rollback":

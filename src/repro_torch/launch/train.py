@@ -14,8 +14,9 @@ host.
 Algorithm selection goes through the Algorithm registry
 (``core.algorithms``): ``--algo a3po|recompute|sync|asympo|grpo_mu|...``
 (``--algo list`` enumerates it). ``--trace trace.json`` records spans for
-rollout, weight publishes, prox passes and train steps (Chrome/Perfetto
-format) and brackets them for ``torch.profiler``; ``--log-jsonl run.jsonl``
+rollout, weight publishes, prox passes and train steps and their phases
+(Chrome/Perfetto format) on ``torch.profiler``'s clock: timestamps are
+Unix-epoch microseconds, as the profiler's events; ``--log-jsonl run.jsonl``
 writes one schema-versioned record per step (the reference's schema);
 ``--quiet`` suppresses the human stdout lines; ``--metrics-prom FILE``
 dumps the metrics registry in prometheus text format at exit.
@@ -208,7 +209,8 @@ def _parser() -> argparse.ArgumentParser:
                         "control plane")
     p.add_argument("--trace", default=None, metavar="FILE",
                    help="record spans and export a Chrome/Perfetto "
-                        "trace.json here")
+                        "trace.json here, on torch.profiler's clock "
+                        "(Unix-epoch microseconds)")
     p.add_argument("--log-jsonl", default=None, metavar="FILE",
                    help="write one schema-versioned JSONL record per "
                         "training step")
@@ -332,8 +334,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 "for the CPU: toy-2m / toy-20m.")
 
     log = RunLogger(args.log_jsonl, quiet=args.quiet)
-    tracer = (install_tracer(SpanTracer(), annotate_profiler=True)
-              if args.trace else None)
+    tracer = install_tracer(SpanTracer()) if args.trace else None
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     log.print(f"device {name}, arch {args.arch}, algo {algo.name}")

@@ -3,10 +3,10 @@
 Three pillars, one import surface:
 
 * ``obs.tracing`` — a low-overhead span tracer (``span(...)`` context
-  manager, thread-aware, monotonic clocks) exporting Chrome/Perfetto
-  ``trace.json``, with flow events tying a weight publish to the serving
-  step that resumed under it, and ``torch.profiler`` brackets when
-  profiling.
+  manager, thread-aware, on torch.profiler's clock) exporting
+  Chrome/Perfetto ``trace.json``, with flow events tying a weight publish
+  to the serving step that resumed under it; while ``torch.profiler``
+  records, each span also brackets its region there.
 * ``obs.metrics`` — a process-wide metrics registry (Counter / Gauge /
   Histogram with labels); ``serving.metrics.ServingMetrics`` is a thin
   facade over it and training-side metrics land in the same registry, so
@@ -33,7 +33,6 @@ from repro_torch.obs.runlog import (
 )
 from repro_torch.obs.tracing import (
     SpanTracer,
-    annotate,
     flow_end,
     flow_start,
     get_tracer,
@@ -51,7 +50,6 @@ __all__ = [
     "RunLogger",
     "STEP_REQUIRED_KEYS",
     "SpanTracer",
-    "annotate",
     "flow_end",
     "flow_start",
     "get_registry",

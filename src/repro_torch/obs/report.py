@@ -12,7 +12,8 @@ Renders (text, optionally machine-readable JSON):
 * the staleness distribution (from the last step's ``serving.*`` snapshot
   when the control plane ran, else per-step ``staleness_mean``)
 * training + decode tokens/sec
-* the weight-publish timeline (span start times from the trace)
+* the weight-publish timeline (span start times from the trace, in
+  seconds since the tracer was installed)
 
 This is the artifact future bench PRs commit alongside raw JSON.
 """
@@ -81,9 +82,12 @@ def summarize(steps: List[Dict[str, Any]],
 
     if trace is not None:
         events = trace.get("traceEvents", [])
+        # seconds since the tracer's install: the export stamps the Unix
+        # epoch and records the install time beside it
+        t0_us = trace.get("metadata", {}).get("t0_us", 0.0)
         out["phases"] = phase_breakdown(events)
         out["publish_timeline_s"] = [
-            round(ev["ts"] / 1e6, 6) for ev in events
+            round((ev["ts"] - t0_us) / 1e6, 6) for ev in events
             if ev.get("ph") == "X" and ev.get("name") == "weight_publish"]
         out["trace_events"] = len(events)
     return out

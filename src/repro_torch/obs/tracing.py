@@ -3,26 +3,34 @@
 Design constraints (the async loop is the hot path being measured):
 
 * **Off by default, ~free when off.** ``span(...)`` checks one module
-  global; when no tracer is installed it returns a shared no-op object —
-  no allocation, no clock read. Instrumentation stays permanently in the
-  library code.
+  global and whether ``torch.profiler`` is recording; with neither on it
+  returns a shared no-op object: no allocation, no clock read.
+  Instrumentation stays permanently in the library code.
+* **One mechanism for both consumers.** Under an installed
+  ``SpanTracer`` a span records a complete event; while ``torch.profiler``
+  records, the same span also opens a ``torch.profiler.record_function``
+  of its name, so a device profile carries the program's regions and the
+  operations launched inside them.
 * **Thread-aware.** Spans record the emitting thread; the rollout worker,
   the trainer loop, and benchmark threads land on separate Perfetto
   tracks (thread-name metadata events included), so the async
   interleaving A-3PO exploits is visually inspectable.
-* **Monotonic clocks.** ``time.perf_counter_ns`` relative to tracer
-  install; timestamps are microseconds as the trace-event format wants.
+* **The profiler's clock.** Durations come from the monotonic
+  ``time.perf_counter_ns``; exported timestamps are Unix-epoch
+  microseconds (one ``time.time_ns`` anchor taken with a
+  ``perf_counter_ns`` reading when the tracer is made), the basis of
+  ``torch.profiler``'s host and CUPTI events (``kineto_results``). The
+  export's ``metadata.t0_us`` is the install time on that clock. A
+  profile's ``export_chrome_trace`` writes its ``ts`` relative to the
+  ``baseTimeNanoseconds`` it records beside them: add that base, in
+  microseconds, to each of its ``ts`` to lay it on the same timeline.
 * **Causality.** ``flow_start``/``flow_end`` emit Chrome flow events
   (``ph: s/f``) that arrows a weight publish to the serving/rollout span
   that first ran under the published version.
 
 Spans carry arbitrary key=value attributes (``args`` in the trace event),
-e.g. per-span staleness, token counts, weight versions.
-
-``annotate(name)`` additionally brackets a region with
-``torch.profiler.record_function`` so device profiles (``torch.profiler``)
-line up with host spans — enabled together with the tracer, a no-op
-otherwise.
+e.g. per-span staleness, token counts, weight versions; the profiler's
+copy of a span carries only its name.
 """
 from __future__ import annotations
 
@@ -31,6 +39,12 @@ import json
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
+
+# whether torch.profiler is recording on this thread: ~0.05 us a call,
+# where an idle ``record_function`` costs microseconds
+_profiling = torch._C._autograd._profiler_enabled
 
 # ----------------------------------------------------------------- no-op path
 
@@ -53,17 +67,28 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _NoopAnnotation:
-    __slots__ = ()
+class _ProfiledSpan:
+    """A span that also brackets its region with
+    ``torch.profiler.record_function`` (the profiler is recording)."""
+
+    __slots__ = ("_inner", "_rf")
+
+    def __init__(self, inner, name: str):
+        self._inner = inner
+        self._rf = torch.profiler.record_function(name)
 
     def __enter__(self):
+        self._inner.__enter__()
+        self._rf.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        self._inner.__exit__(*exc)
         return False
 
-
-_NOOP_ANNOTATION = _NoopAnnotation()
+    def set(self, **attrs) -> None:
+        self._inner.set(**attrs)
 
 
 # ------------------------------------------------------------------- tracer
@@ -106,7 +131,10 @@ class SpanTracer:
     """
 
     def __init__(self, process_name: str = "repro-a3po"):
+        # one anchor pair: offsets on the monotonic clock, placed on the
+        # epoch that torch.profiler stamps
         self._t0_ns = time.perf_counter_ns()
+        self._epoch0_ns = time.time_ns()
         self._lock = threading.Lock()
         self._events: List[Dict[str, Any]] = []
         self._tids: Dict[int, int] = {}
@@ -118,7 +146,8 @@ class SpanTracer:
 
     # ------------------------------------------------------------- internals
     def _us(self, t_ns: int) -> float:
-        return (t_ns - self._t0_ns) / 1e3
+        """Unix-epoch microseconds of a ``perf_counter_ns`` reading."""
+        return (self._epoch0_ns + (t_ns - self._t0_ns)) / 1e3
 
     def _tid(self) -> int:
         ident = threading.get_ident()
@@ -200,7 +229,8 @@ class SpanTracer:
         return {"traceEvents": self.events(),
                 "displayTimeUnit": "ms",
                 "metadata": {"process": self.process_name,
-                             "clock": "perf_counter_ns"}}
+                             "clock": "unix_epoch_us",
+                             "t0_us": self._epoch0_ns / 1e3}}
 
     def export(self, path: str) -> str:
         with open(path, "w") as f:
@@ -219,20 +249,13 @@ def _jsonable(v):
 
 # ----------------------------------------------------------- module controls
 _TRACER: Optional[SpanTracer] = None
-_ANNOTATE = False
 
 
-def install_tracer(tracer: Optional[SpanTracer] = None, *,
-                   annotate_profiler: bool = False) -> Optional[SpanTracer]:
-    """Install (or, with ``None``, remove) the process-wide tracer.
-
-    ``annotate_profiler=True`` additionally brackets ``annotate(...)``
-    regions with ``torch.profiler.record_function`` so a concurrently
-    captured device profile carries the same region names.
-    """
-    global _TRACER, _ANNOTATE
+def install_tracer(tracer: Optional[SpanTracer] = None
+                   ) -> Optional[SpanTracer]:
+    """Install (or, with ``None``, remove) the process-wide tracer."""
+    global _TRACER
     _TRACER = tracer
-    _ANNOTATE = bool(annotate_profiler) and tracer is not None
     return tracer
 
 
@@ -241,15 +264,16 @@ def get_tracer() -> Optional[SpanTracer]:
 
 
 def span(name: str, **attrs):
-    """Context manager timing a region under the installed tracer.
+    """Context manager timing a region under the installed tracer and,
+    while ``torch.profiler`` records, bracketing it with a
+    ``record_function`` of the same name.
 
-    With no tracer installed this is one global load + returning a shared
-    no-op object — safe to leave in hot loops.
+    With neither on this is one global load, one cheap check and a shared
+    no-op object: safe to leave in hot loops.
     """
     t = _TRACER
-    if t is None:
-        return _NOOP
-    return t.span(name, **attrs)
+    sp = _NOOP if t is None else t.span(name, **attrs)
+    return _ProfiledSpan(sp, name) if _profiling() else sp
 
 
 def instant(name: str, **attrs) -> None:
@@ -270,25 +294,6 @@ def flow_end(name: str, flow_id: int, **attrs) -> None:
     t = _TRACER
     if t is not None:
         t.flow_end(name, flow_id, **attrs)
-
-
-def annotate(name: str):
-    """``torch.profiler.record_function`` bracket, active only when the
-    tracer was installed with ``annotate_profiler=True`` (profiling on)."""
-    if not _ANNOTATE:
-        return _NOOP_ANNOTATION
-    import torch
-    return torch.profiler.record_function(name)
-
-
-def step_annotation(step: int):
-    """``torch.profiler.record_function`` named for the outer training
-    step — groups device activity per step in a captured profile; active
-    only under ``annotate_profiler=True``, as ``annotate``."""
-    if not _ANNOTATE:
-        return _NOOP_ANNOTATION
-    import torch
-    return torch.profiler.record_function(f"train_step_{step}")
 
 
 def trace_span(name: Optional[str] = None, **attrs):

@@ -51,7 +51,7 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.model import require_device, torch_dtype
-from repro_torch.obs.tracing import annotate, span
+from repro_torch.obs.tracing import span
 from repro_torch.rollout import paged_cache as pc
 from repro_torch.rollout.sampler import (
     fused_sample_step,
@@ -1065,15 +1065,14 @@ class ContinuousBatchingEngine:
         budget = np.zeros((self.max_seqs,), np.int32)
         budget[list(plan)] = list(plan.values())
         self._prepare_decode(plan)
-        with annotate("decode_horizon"):
-            packed, lens, logits = _paged_decode_horizon(
-                params, _layers(params, self.cfg), self.cfg, self.state,
-                self._next_logits,
-                torch.from_numpy(budget).to(self.device),
-                None if self.greedy else self._generator(generator),
-                trash_block=self.trash_block, horizon=H,
-                temperature=self.rl.temperature, top_p=self.rl.top_p,
-                greedy=self.greedy, ssm=self.ssm_cache)
+        packed, lens, logits = _paged_decode_horizon(
+            params, _layers(params, self.cfg), self.cfg, self.state,
+            self._next_logits,
+            torch.from_numpy(budget).to(self.device),
+            None if self.greedy else self._generator(generator),
+            trash_block=self.trash_block, horizon=H,
+            temperature=self.rl.temperature, top_p=self.rl.top_p,
+            greedy=self.greedy, ssm=self.ssm_cache)
         self.state.seq_lens.copy_(lens)
         self._next_logits = logits
         drained = packed.cpu().numpy()  # the one blocking drain per horizon

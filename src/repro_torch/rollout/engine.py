@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.data import tokenizer as tok
 from repro_torch.models import model as M
 from repro_torch.models.layers import logits_from_hidden
-from repro_torch.obs.tracing import annotate, span
+from repro_torch.obs.tracing import span
 from repro_torch.rollout.sampler import fused_sample_step
 
 
@@ -146,8 +146,7 @@ class RolloutEngine:
         sampling, as the reference's key; ``greedy`` ignores it."""
         device = params["embedding"]["embed"].device
         with span("rollout_generate", batch=int(prompts.shape[0]),
-                  max_new=self.max_new_tokens, version=version), \
-                annotate("rollout_generate"):
+                  max_new=self.max_new_tokens, version=version):
             packed = _generate(
                 params, self.cfg,
                 torch.as_tensor(np.asarray(prompts), dtype=torch.long)

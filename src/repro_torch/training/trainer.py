@@ -42,7 +42,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import output_head_weight
 from repro_torch.models.params import ParamTree
 from repro_torch.obs.metrics import get_registry
-from repro_torch.obs.tracing import annotate, span
+from repro_torch.obs.tracing import span
 from repro_torch.rollout.engine import RolloutBatch
 from repro_torch.training.optimizer import (
     adam_init,
@@ -205,17 +205,23 @@ def _grads(loss: torch.Tensor, views: Dict[str, torch.Tensor]
 
 def _loss_and_grads(flat_p: Dict[str, torch.Tensor], t, *, cfg, rl, algo,
                     version):
-    """(loss, detached metrics, grads by path) of one (micro)batch."""
+    """(loss, detached metrics, grads by path) of one (micro)batch, in
+    three spans: the model's forward, the objective and the backward."""
     views = _trainable_views(flat_p)
-    logp, entropy, aux = _score_tokens(unflatten(views), cfg, t["tokens"])
-    loss, metrics = algo.loss(logp, LossInputs(
-        advantages=t["advantages"], mask=t["mask"],
-        behav_logp=t.get("behav_logp"), versions=t.get("versions"),
-        current_version=version, prox_logp=t.get("prox"),
-        entropy=entropy), rl)
-    loss = loss + aux
+    with span("train_forward"):
+        logp, entropy, aux = _score_tokens(unflatten(views), cfg,
+                                           t["tokens"])
+    with span("train_objective"):
+        loss, metrics = algo.loss(logp, LossInputs(
+            advantages=t["advantages"], mask=t["mask"],
+            behav_logp=t.get("behav_logp"), versions=t.get("versions"),
+            current_version=version, prox_logp=t.get("prox"),
+            entropy=entropy), rl)
+        loss = loss + aux
+    with span("train_backward"):
+        grads = _grads(loss, views)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            _grads(loss, views))
+            grads)
 
 
 def _grads_of(flat_p, t, nmi: int, **kw):
@@ -290,15 +296,16 @@ def _train_step(params, opt, version, batch: TrainBatch,
     for i in range(nmb):
         loss, metrics, grads = _grads_of(
             flat_p, _constrain_batch(_slice(mbt, i, mb_size)), nmi, **kw)
-        gnorm = global_norm(grads)
-        # non-finite guard on the device: grad_norm is a global reduction,
-        # so one flag covers the loss and every gradient; with
-        # skip_nonfinite a poisoned minibatch leaves params and the whole
-        # Adam state (moments and t) as they were
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        flat_p = flatten(adam_update(
-            grads, opt, flat_p, rl, donate_params=donate_params, gnorm=gnorm,
-            apply=ok if skip_nonfinite else None)[0])
+        with span("train_optimizer"):
+            gnorm = global_norm(grads)
+            # non-finite guard on the device: grad_norm is a global
+            # reduction, so one flag covers the loss and every gradient;
+            # with skip_nonfinite a poisoned minibatch leaves params and
+            # the whole Adam state (moments and t) as they were
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            flat_p = flatten(adam_update(
+                grads, opt, flat_p, rl, donate_params=donate_params,
+                gnorm=gnorm, apply=ok if skip_nonfinite else None)[0])
         stacked.append(dict(metrics, loss=loss, grad_norm=gnorm,
                             nonfinite=(~ok).float()))
     out = _reduce_metrics(_stack(stacked))
@@ -391,19 +398,18 @@ class Trainer:
 
         # explicit prox forward pass, paid only by algorithms that declare
         # needs_prox_forward (the recompute baseline)
-        t0 = time.perf_counter()
-        prox = None
+        prox, prox_time = None, 0.0
         if self.algo.needs_prox_forward:
-            with span("prox_forward", algo=self.algo.name), \
-                    annotate("prox_forward"):
+            t0 = time.perf_counter()
+            with span("prox_forward", algo=self.algo.name):
                 prox = recompute_prox_logp(state.params, self.cfg,
                                            batch.tokens)
                 self._wait(prox)
             host_syncs += 1
-        prox_time = time.perf_counter() - t0
+            prox_time = time.perf_counter() - t0
 
         with span("train_update", algo=self.algo.name, batch=int(B),
-                  minibatches=int(nmb)), annotate("train_update"):
+                  minibatches=int(nmb)):
             params, opt, packed = _train_step(
                 state.params, state.opt, state.version, batch, prox,
                 cfg=self.cfg, rl=rl, algo=self.algo, num_minibatches=nmb,

@@ -1067,8 +1067,15 @@ def test_validate_and_report_match_the_references(tmp_path):
         jvalidate.validate_trace(trace, expect_spans=spans) == []
     tr_json = json.loads(Path(trace).read_text())
     ours = report.summarize(recs, tr_json)
-    ref = jreport.summarize(recs, tr_json)
+    # the reference's tracer stamps microseconds since its install; the
+    # port's stamps the Unix epoch and records its install as ``t0_us``
+    t0_us = tr_json["metadata"]["t0_us"]
+    ref_json = dict(tr_json, traceEvents=[
+        dict(ev, ts=ev["ts"] - t0_us) if "ts" in ev else ev
+        for ev in tr_json["traceEvents"]])
+    ref = jreport.summarize(recs, ref_json)
     assert ours == ref and ours["num_steps"] == 4
+    assert 0.0 < ours["publish_timeline_s"][0] < 600.0
     assert report.render(ours) == jreport.render(ref)
     assert validate.main(["--jsonl", path, "--trace", trace,
                           "--min-steps", "4"]) == 0
