@@ -69,7 +69,18 @@ Phases, each printing one JSON line:
              bound (the backward's: its three products of 2 T d V flops at
              the bf16 tensor-core rate), its plain version and, where one
              exists, a library yardstick; the backward also with its peak
-             device memory above its inputs.
+             device memory above its inputs; the Adam kernels (the clip's
+             norm in one read, the update in one pass) at Qwen2.5-1.5B's
+             leaves in bf16, one update from a warmed state against the
+             plain path on the same inputs (the norm within 1e-6 of its
+             float64 value, beside the plain path's own error, and
+             bit-equal on a second launch, moments within 1e-6
+             relative, weights within 1 bf16 ulp, one launch of the
+             update and two of the norm), each timed beside its bytes
+             bound and the plain path: the kernels line's adam_norm and
+             adam_update rows. Every training path below counts their
+             launches (ADAM_PATH) and fails without them: the card has no
+             plain Adam.
 6. training — Qwen2.5-1.5B at full width and depth (bf16, layer weights
              x8) serves two batches of 16 sampled requests (4 prompts x a
              group of 4, prompts 64-512 tokens, 64 new tokens) through the
@@ -1528,6 +1539,7 @@ def phase_profile(torch, cfg, params, prompts):
 def _all_counts():
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.adam import ops as adam_ops
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
@@ -1545,11 +1557,14 @@ def _all_counts():
             "flash_attention": fops.LAUNCHES,
             "decode_attention": dops.DENSE_LAUNCHES,
             "ssd_decode_step": sops.LAUNCHES["ssd_decode_step"],
-            "ssd_intra_chunk": sops.LAUNCHES["ssd_intra_chunk"]}
+            "ssd_intra_chunk": sops.LAUNCHES["ssd_intra_chunk"],
+            "adam_norm": adam_ops.LAUNCHES["norm"],
+            "adam_update": adam_ops.LAUNCHES["update"]}
 
 
 def _reset_counts():
     from repro_torch.kernels.a3po_loss import ops as aops
+    from repro_torch.kernels.adam import ops as adam_ops
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.logprob import ops as lops
@@ -1559,7 +1574,7 @@ def _reset_counts():
     dops.DENSE_LAUNCHES = 0
     pops.LAUNCHES = 0
     fops.LAUNCHES = 0
-    for d in (aops.LAUNCHES, lops.LAUNCHES, sops.LAUNCHES):
+    for d in (aops.LAUNCHES, lops.LAUNCHES, sops.LAUNCHES, adam_ops.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -2127,6 +2142,101 @@ def _changed(torch, old, new):
         sum(a[k].numel() for k in a)
 
 
+def phase_adam(torch):
+    """The Adam kernels at Qwen2.5-1.5B's leaves (bf16 weights and
+    gradients, float32 moments, Trainer's separate output), against the
+    plain version (``kernels/adam/ref.py``, eager) on the same inputs,
+    and timed beside it and their bytes bound. Returns their records for
+    the kernels line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.adam import ops as aops
+    from repro_torch.kernels.adam.ref import adam_update_ref, global_norm_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.params import walk
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    shapes = [s.shape for _, s in walk(M.model_spec(
+        get_config("qwen2.5-1.5b")))]
+
+    def draw(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    ps = [draw(s, 0.02, torch.bfloat16) for s in shapes]
+    gs = [draw(s, 1e-4, torch.bfloat16) for s in shapes]
+    ms = [draw(s, 1e-5, torch.float32) for s in shapes]
+    vs = [draw(s, 1e-5, torch.float32).square_() for s in shapes]
+    rms, rvs = [m.clone() for m in ms], [v.clone() for v in vs]
+    outs = [torch.empty_like(p) for p in ps]
+    routs = [torch.empty_like(p) for p in ps]
+    hp = dict(lr=8.5e-6, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
+              max_norm=1.0)
+    t = torch.tensor(3, dtype=torch.int32, device="cuda")
+    n = sum(p.numel() for p in ps)
+    n0 = dict(aops.LAUNCHES)
+    gn = aops.global_norm(gs)
+    aops.adam_update(ps, gs, ms, vs, outs, gn, t, None, **hp)
+    launches = {k: aops.LAUNCHES[k] - n0[k] for k in n0}
+    gn2 = aops.global_norm(gs)
+    gref = global_norm_ref(gs)
+    g64 = float(torch.sqrt(sum(x.double().square().sum() for x in gs)))
+    adam_update_ref(ps, gs, rms, rvs, routs, gn, t, None, **hp)
+
+    def rel(a, b):
+        return max(float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+                   for x, y in zip(a, b))
+    ulps = 0.0
+    for o, r in zip(outs, routs):
+        _, e = torch.frexp(r.float())
+        ulps = max(ulps, float(((o.float() - r.float()).abs()
+                                / torch.ldexp(torch.ones_like(e, dtype=torch
+                                                              .float32),
+                                              e - 8)).max()))
+    rec = {"phase": "adam", "leaves": len(ps), "elements": n,
+           "dtype": "bfloat16", "launches": launches,
+           "p_max_abs_err": max(float((o.float() - r.float()).abs().max())
+                                for o, r in zip(outs, routs)),
+           "norm_rel_err": abs(float(gn) - float(gref)) / float(gref),
+           "norm_abs_err": abs(float(gn) - g64),
+           "norm_err_f64": abs(float(gn) - g64) / g64,
+           "plain_norm_err_f64": abs(float(gref) - g64) / g64,
+           "norm_bit_equal": bool(torch.equal(gn, gn2)),
+           "m_rel_err": rel(ms, rms), "v_rel_err": rel(vs, rvs),
+           "p_max_bf16_ulps": ulps,
+           "equal_leaves": sum(bool(torch.equal(o, r))
+                               for o, r in zip(outs, routs))}
+    del rms, rvs, routs
+    ok = (rec["norm_err_f64"] <= 1e-6 and rec["norm_bit_equal"]
+          and rec["m_rel_err"] <= 1e-6 and rec["v_rel_err"] <= 1e-6
+          and ulps <= 1.0 and launches == {"norm": 2, "update": 1})
+    # bytes: the norm reads g; the update reads p, g, m, v and writes p',
+    # m, v
+    norm_b = sum(x.numel() * x.element_size() for x in gs)
+    upd_b = sum(p.numel() * (2 * p.element_size() + gr.element_size() + 16)
+                for p, gr in zip(ps, gs))
+    rec.update({
+        "norm_ms": timer.ms(lambda: aops.global_norm(gs), iters=10),
+        "update_ms": timer.ms(lambda: aops.adam_update(
+            ps, gs, ms, vs, outs, gn, t, None, **hp), iters=10),
+        "plain_norm_ms": timer.ms(lambda: global_norm_ref(gs), iters=5,
+                                  warmup=1),
+        "plain_update_ms": timer.ms(lambda: adam_update_ref(
+            ps, gs, ms, vs, outs, gn, t, None, **hp), iters=5, warmup=1),
+        "norm_bound_ms": norm_b / HBM_BYTES_S * 1e3,
+        "update_bound_ms": upd_b / HBM_BYTES_S * 1e3, "bound_by": "bytes"})
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"adam kernels off their plain version: {rec}")
+    shape = {"leaves": len(ps), "elements": n, "dtype": "bfloat16"}
+    return {name: {"max_abs_err": rec[err], "ms": rec[f"{part}_ms"],
+                   "plain_ms": rec[f"plain_{part}_ms"],
+                   "bound_ms": rec[f"{part}_bound_ms"], "bound_by": "bytes",
+                   "library_ms": None, "shape": shape}
+            for name, part, err in (
+                ("adam_norm", "norm", "norm_abs_err"),
+                ("adam_update", "update", "p_max_abs_err"))}
+
+
 def phase_training(torch):
     import numpy as np
     from repro_torch.configs.base import RLConfig
@@ -2200,7 +2310,7 @@ def phase_training(torch):
         state = new
     launches = dict(_all_counts())
     train_kernels = ("a3po_loss", "a3po_loss_bwd", "token_logprob_entropy",
-                     "token_logprob_entropy_bwd")
+                     "token_logprob_entropy_bwd") + ADAM_PATH
     if min(launches[k] for k in train_kernels) <= 0:
         raise AssertionError(f"a training kernel was not launched: "
                              f"{launches}")
@@ -2563,11 +2673,32 @@ def _dense_top_key_dropped(torch, q, kc, vc, lengths):
     return decode_attention(q.float(), k, v, valid & ~drop)
 
 
+def _logprob_grads_exact(torch, h, w, t, gl, ge, rows=256):
+    """(dh, dw) of sum(logp * gl + entropy * ge) for hidden ``h`` [T, d]
+    and head ``w`` [d, V], in float64, ``rows`` token rows at a time. The
+    path holds check the logprob backward against this, not against the
+    plain version's float32 autograd: on elements near zero that lies
+    further from the exact gradient than the kernel's bf16 output."""
+    w64 = w.double().requires_grad_(True)
+    dh = torch.empty(h.shape, dtype=torch.float64, device=h.device)
+    for r0 in range(0, h.shape[0], rows):
+        r1 = min(r0 + rows, h.shape[0])
+        h64 = h[r0:r1].double().requires_grad_(True)
+        logits = h64 @ w64
+        logz = torch.logsumexp(logits, dim=-1)
+        lp = logits.gather(-1, t[r0:r1].long()[:, None])[:, 0] - logz
+        en = logz - (torch.softmax(logits, dim=-1) * logits).sum(dim=-1)
+        ((lp * gl[r0:r1]).sum() + (en * ge[r0:r1]).sum()).backward()
+        dh[r0:r1] = h64.grad
+    return dh, w64.grad
+
+
 def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one",
                        a3po_wrong=("last_block_dropped", "divides_by_t")):
     """Each kernel op the path called, held against its plain version on
     the inputs of its last call there (bf16 attention and logprob inputs
-    against float32 plain versions, the A-3PO loss in float32), with the
+    against float32 plain versions, the logprob backward against its
+    float64 gradient, the A-3PO loss in float32), with the
     wrong references of the kernel phases (dense decode's, one label or a
     tuple of them: ``"lengths_minus_one"``, ``"top_key_dropped"``
     (``_dense_top_key_dropped``) or ``"half_the_keys"`` (each row's first
@@ -2636,24 +2767,20 @@ def _hold_path_kernels(torch, seen, decode_wrong="lengths_minus_one",
             _hold(torch, rec[label], out, ref, LOGPROB_TOL,
                   {"top_vocab_tile_dropped": wrong})
         del h32, w32, lp_r, en_r, lp_w, en_w
-        # backward: dh, dw against autograd of the plain version
+        # backward: dh, dw against the exact (float64) gradient
         g = torch.Generator(device=h.device).manual_seed(9)
         gl, ge = torch.randn(2, h.shape[0], generator=g, device=h.device)
         hk, wk = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
         lp, en = lops.token_logprob_entropy(hk, wk, t)
         ((lp * gl).sum() + (en * ge).sum()).backward()
-        h32 = h.float().requires_grad_(True)
-        w32 = w.float().requires_grad_(True)
-        lp_r, en_r = token_logprob_entropy_ref(h32, w32, t)
-        ((lp_r * gl).sum() + (en_r * ge).sum()).backward()
+        dh_r, dw_r = _logprob_grads_exact(torch, h, w, t, gl, ge)
         rtol = LOGPROB_BWD_RTOL["bfloat16" if h.dtype == torch.bfloat16
                                 else "float32"]
-        for label, out, ref in (("dh", hk.grad, h32.grad),
-                                ("dw", wk.grad, w32.grad)):
+        for label, out, ref in (("dh", hk.grad, dh_r), ("dw", wk.grad, dw_r)):
             rec[label] = {"name": f"token_logprob_entropy_bwd.{label}"}
             _hold(torch, rec[label], out, ref,
                   {"rtol": rtol, "atol": 1e-5 * ref.abs().max().item()}, {})
-        del hk, wk, h32, w32
+        del hk, wk, dh_r, dw_r
         recs["token_logprob_entropy"] = rec
     if "a3po_loss" in seen:
         args, kw = seen["a3po_loss"]
@@ -2784,14 +2911,14 @@ def phase_async_rl(torch, tmp):
         prox_ok = all((p > 1e-3) == (algo == "recompute")
                       for p in rec["prox_time_s"])
         path_kernels = ["flash_attention", "decode_attention",
-                        "token_logprob_entropy", "token_logprob_entropy_bwd"]
+                        "token_logprob_entropy", "token_logprob_entropy_bwd",
+                        *ADAM_PATH]
         if algo == "a3po":
             path_kernels += ["a3po_loss", "a3po_loss_bwd"]
         if (rec["staleness"] != [0.0, 1.0, 2.0, 2.0]
                 or rec["host_syncs"] != [syncs] * 4 or not prox_ok
                 or any(counts[k] <= 0 for k in path_kernels)
-                or any(k not in seen for k in path_kernels
-                       if not k.endswith("_bwd"))):
+                or any(k not in seen for k in _captured(path_kernels))):
             raise AssertionError(f"launcher run: {rec}")
         launches[algo] = counts
         # after the counts were read: the path's rollouts and the inputs
@@ -3227,7 +3354,7 @@ def phase_control_plane(torch, tmp):
     emit(rec)
     path = ("paged_decode_attention", "paged_prefill_attention",
             "token_logprob_entropy", "token_logprob_entropy_bwd",
-            "a3po_loss", "a3po_loss_bwd")
+            "a3po_loss", "a3po_loss_bwd") + ADAM_PATH
     if (len(recs) != 4
             or any(set(r.get("serving") or {}) != keys for r in recs)
             or not all(0 <= r["staleness_mean"] <= gate for r in recs)
@@ -3416,11 +3543,24 @@ def _path_counts(kinds):
     return {k: counts[k] for k in kinds}
 
 
+def _captured(kinds):
+    """The kernels of a path that a ``_capture_ops`` capture sees: not the
+    backwards (their ops run inside the forward's autograd function) and
+    not Adam's (called directly)."""
+    return [k for k in kinds if not k.endswith("_bwd")
+            and k not in ADAM_PATH]
+
+
+# every training path's optimizer: the card has no plain Adam, and these
+# counts show each path launched the kernels (they are called directly,
+# not through a captured op, so they are never in a capture's `seen`)
+ADAM_PATH = ("adam_norm", "adam_update")
 TRAIN_PATH = ("flash_attention", "decode_attention", "token_logprob_entropy",
-              "token_logprob_entropy_bwd", "a3po_loss", "a3po_loss_bwd")
+              "token_logprob_entropy_bwd", "a3po_loss",
+              "a3po_loss_bwd") + ADAM_PATH
 ASYNC_PATH = ("paged_decode_attention", "paged_prefill_attention",
               "token_logprob_entropy", "token_logprob_entropy_bwd",
-              "a3po_loss", "a3po_loss_bwd")
+              "a3po_loss", "a3po_loss_bwd") + ADAM_PATH
 SERVE_PATH = ("paged_decode_attention", "paged_prefill_attention")
 
 
@@ -3902,7 +4042,11 @@ def phase_training_f32(torch):
     kernel_launches = dict(_all_counts())
     with _plain_training_ops():
         s_p, m_p = Trainer(cfg, rl, "a3po").step(clone, batch)
-    if _all_counts() != kernel_launches or \
+
+    def ops(counts):  # both steps' optimizer runs the Adam kernels
+        return {k: v for k, v in counts.items() if k not in ADAM_PATH}
+    if ops(_all_counts()) != ops(kernel_launches) or \
+            min(kernel_launches[k] for k in ADAM_PATH) == 0 or \
             kernel_launches["a3po_loss"] == 0 or \
             kernel_launches["token_logprob_entropy"] == 0 or \
             kernel_launches["token_logprob_entropy_bwd"] == 0 or \
@@ -4360,8 +4504,10 @@ MOE_SCALE_PARTS = ("ffn",)
 # B parameters: bf16 weights 6.2 GB, gradients 6.2 GB, Adam's float32
 # moments 24.9 GB, the updated weights 6.2 GB) the eager Adam's float32
 # temporaries of one expert stack ([4, 128, 2048, 768], 3.2 GB each, ~7
-# live) took the card past 80 GB (measured: out of memory in
-# optimizer._leaf at 69.8 GB allocated). At 2 layers: 1.87 B parameters.
+# live) took the card past 80 GB (measured: out of memory in the eager
+# per-leaf update at 69.8 GB allocated; the Adam kernels that replaced it
+# keep no temporaries, and 4 layers were not tried again). At 2 layers:
+# 1.87 B parameters.
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_PROMPT_PAD = 256
 MOE_TRAIN_MAX_NEW = 32
@@ -4792,7 +4938,7 @@ def phase_moe_training(torch, name):
     launches = _path_counts(TRAIN_PATH)
     peak = torch.cuda.max_memory_allocated() / 1e9
     train_kernels = ("a3po_loss", "a3po_loss_bwd", "token_logprob_entropy",
-                     "token_logprob_entropy_bwd")
+                     "token_logprob_entropy_bwd") + ADAM_PATH
     if min(launches[k] for k in train_kernels) <= 0 \
             or (cfg.mla is None) != (launches["flash_attention"] > 0):
         raise AssertionError(f"{name} training launches {launches}")
@@ -5584,7 +5730,7 @@ def phase_examples_full(torch, smi):
         # recompute's objective is not the A-3PO loss: its path has no
         # A-3PO kernel
         counts = _path_counts(TRAIN_PATH if name == "a3po"
-                              else TRAIN_PATH[:4])
+                              else TRAIN_PATH[:4] + ADAM_PATH)
         peak = torch.cuda.max_memory_allocated() / 1e9
         _check_records(np, recs, f"examples {name}")
         final = warmup.eval_reward(cfg, state.params,
@@ -5948,7 +6094,7 @@ SSM_LOOP_STEPS = 4
 SSM_LOOP_STALENESS = 2
 SSM_TRAIN_PATH = ("ssd_decode_step", "ssd_intra_chunk",
                   "token_logprob_entropy", "token_logprob_entropy_bwd",
-                  "a3po_loss", "a3po_loss_bwd")
+                  "a3po_loss", "a3po_loss_bwd") + ADAM_PATH
 # zamba2's shared attention in the rollout (B 16, ~500 keys, H 32 = KV 32,
 # hd 64) attends flatly at its init std, so a dense decode one key short,
 # or without its top-scoring key, may stay within the bf16 tolerance; a
@@ -6278,7 +6424,7 @@ def _ssm_trainer(torch, name, smi):
         trainer_mod.recompute_prox_logp = plain_prox
     launches = _path_counts(path)
     if min(launches.values()) <= 0 \
-            or any(k not in seen for k in path if not k.endswith("_bwd")):
+            or any(k not in seen for k in _captured(path)):
         raise AssertionError(f"{name} training launches {launches}")
 
     # (a) the routes at recompute's parameters: its prox logps (the kernel
@@ -6480,7 +6626,8 @@ def _ssm_loop(torch, name, tmp):
     def scale(p):
         _scale_ssm(p, SSM_SCALE[name])
     kinds = ["ssd_decode_step", "ssd_intra_chunk", "token_logprob_entropy",
-             "token_logprob_entropy_bwd", "a3po_loss", "a3po_loss_bwd"]
+             "token_logprob_entropy_bwd", "a3po_loss", "a3po_loss_bwd",
+             *ADAM_PATH]
     torch.cuda.reset_peak_memory_stats()
     if engine == "sim":
         argv += ["--staleness", str(SSM_LOOP_STALENESS)]
@@ -6538,7 +6685,7 @@ def _ssm_loop(torch, name, tmp):
     if len(recs) != SSM_LOOP_STEPS or not stale_ok \
             or rec["host_syncs"] != [1.0] * SSM_LOOP_STEPS \
             or min(counts.values()) <= 0 \
-            or any(k not in seen for k in kinds if not k.endswith("_bwd")):
+            or any(k not in seen for k in _captured(kinds)):
         raise AssertionError(f"{name} loop: {rec}")
     label = f"ssm_{engine}_{name}"
     held = _hold_path_kernels(torch, seen)
@@ -6605,6 +6752,8 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
         launches = phase_engine(torch)
     _release(torch)
     kernels.update(phase_training_kernels(torch))
+    _release(torch)
+    kernels.update(phase_adam(torch))
     _release(torch)
     launches.update({k: v for k, v in phase_training(torch).items()
                      if k not in launches})
@@ -6702,7 +6851,13 @@ def _main(torch, smi, t_start, dry_tmp, dry_procs) -> int:
         "src/repro/kernels/ssd/kernel.py:63"),
         "ssd_intra_chunk": (
         "src/repro_torch/kernels/csrc/ssd.cu",
-        "src/repro/kernels/ssd/kernel.py:102")}
+        "src/repro/kernels/ssd/kernel.py:102"),
+        "adam_norm": (
+        "src/repro_torch/kernels/csrc/adam.cu",
+        "src/repro/training/optimizer.py:23"),
+        "adam_update": (
+        "src/repro_torch/kernels/csrc/adam.cu",
+        "src/repro/training/optimizer.py:29")}
     line = []
     for name, (source, replaces) in src.items():
         k = kernels[name]

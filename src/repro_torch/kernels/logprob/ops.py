@@ -182,6 +182,14 @@ def dlogits_parts(hidden, w, targets, logz, mu, g_logp, g_ent, r0, r1,
     return dl
 
 
+def _embedding_layout(w) -> bool:
+    """Whether ``w`` [d, V] is the transpose of a contiguous [V, d] (the
+    tied embedding's ``embed.T``). The backward then writes dw^T, so that
+    the gradient reaches the embedding in its own layout: a transposed
+    one would cost a strided pass wherever it is added or copied."""
+    return w.stride(0) == 1 and w.stride(1) == w.shape[0]
+
+
 def _backward_wgmma(hidden, w, targets, logz, mu, g_logp, g_ent,
                     need_dh, need_dw):
     """Each chunk's dl comes from ``dlogits_parts``; the products take both
@@ -191,16 +199,19 @@ def _backward_wgmma(hidden, w, targets, logz, mu, g_logp, g_ent,
     lo] accumulates over the chunks in one float32 buffer (beta 0 on the
     first chunk, which reads none of it). One K = 2n product a chunk
     reads and writes that buffer once; a product per part would do it
-    twice. No operand is copied to float32."""
+    twice. No operand is copied to float32. dw is laid out as w
+    (``_embedding_layout``)."""
     T, d = hidden.shape
     V = w.shape[1]
     dev = hidden.device
     f32 = torch.float32
+    wt = _embedding_layout(w)
     buf = torch.empty(2 * min(CHUNK, T) * (-(-V // 8) * 8),
                       dtype=torch.bfloat16, device=dev)
     dh = torch.empty(T, d, dtype=hidden.dtype, device=dev) if need_dh \
         else None
-    dw = torch.empty(d, V, dtype=f32, device=dev) if need_dw else None
+    dw = torch.empty((V, d) if wt else (d, V), dtype=f32, device=dev) \
+        if need_dw else None
     for r0 in range(0, T, CHUNK):
         r1 = min(r0 + CHUNK, T)
         n = r1 - r0
@@ -211,23 +222,29 @@ def _backward_wgmma(hidden, w, targets, logz, mu, g_logp, g_ent,
             dh[r0:r1] = p[:n] + p[n:]
         if need_dw:
             h2 = hidden[r0:r1].repeat(2, 1)
-            torch.addmm(dw, h2.T, parts, out_dtype=f32, out=dw,
+            a, b = (parts.T, h2) if wt else (h2.T, parts)
+            torch.addmm(dw, a, b, out_dtype=f32, out=dw,
                         beta=0 if r0 == 0 else 1)
-    return dh, None if dw is None else dw.to(w.dtype)
+    if dw is None:
+        return dh, None
+    dw = dw.to(w.dtype)
+    return dh, dw.T if wt else dw
 
 
 def _backward_first(hidden, w, targets, logz, mu, g_logp, g_ent, need_dh,
                     need_dw):
     """The first design, for float32 operands and bf16 rows the tensor maps
     do not take: the wmma (or float32 FMA) kernel writes a chunk's float32
-    dl, and float32 library products take it."""
+    dl, and float32 library products take it. dw is laid out as w
+    (``_embedding_layout``)."""
     T, d = hidden.shape
     V = w.shape[1]
     w32 = w.float()
     h32 = hidden.float()
     f32 = dict(dtype=torch.float32, device=hidden.device)
+    wt = _embedding_layout(w)
     dh = torch.empty(T, d, **f32) if need_dh else None
-    dw = torch.zeros(d, V, **f32) if need_dw else None
+    dw = torch.zeros((V, d) if wt else (d, V), **f32) if need_dw else None
     buf = torch.empty(min(CHUNK, T), V, **f32)
     for r0 in range(0, T, CHUNK):
         r1 = min(r0 + CHUNK, T)
@@ -239,9 +256,12 @@ def _backward_first(hidden, w, targets, logz, mu, g_logp, g_ent, need_dh,
         if need_dh:
             torch.matmul(dl, w32.T, out=dh[r0:r1])
         if need_dw:
-            dw.addmm_(h32[r0:r1].T, dl)
-    return (None if dh is None else dh.to(hidden.dtype),
-            None if dw is None else dw.to(w.dtype))
+            h = h32[r0:r1]
+            dw.addmm_(*((dl.T, h) if wt else (h.T, dl)))
+    if dw is not None:
+        dw = dw.to(w.dtype)
+        dw = dw.T if wt else dw
+    return None if dh is None else dh.to(hidden.dtype), dw
 
 
 class _TokenLogprobEntropy(torch.autograd.Function):

@@ -7,6 +7,13 @@ global norm of all gradients. The step count ``t``, the bias corrections
 and the clip scale stay device tensors, so an update never waits for the
 device. Parameters, gradients and moments are trees (nested dicts, or a
 ``ParamTree`` for the parameters) and are matched by path.
+
+Both halves run in ``kernels.adam``: on the card the clip's norm in one
+read of the gradients and the update in one pass over every leaf (a leaf
+the kernels cannot take raises), elsewhere its plain version. Each update
+records where its elements went as the installed tracer's
+``adam_update`` counter (``fused_elems``: the kernels, ``plain_elems``:
+the plain version).
 """
 from __future__ import annotations
 
@@ -15,7 +22,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import RLConfig
+from repro_torch.kernels.adam import ops as adam_ops
 from repro_torch.models.params import ParamTree, walk
+from repro_torch.obs.tracing import get_tracer
 
 OptState = Dict[str, Any]  # {"m": tree, "v": tree, "t": 0-d int32 tensor}
 
@@ -48,20 +57,7 @@ def adam_init(params) -> OptState:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a flat dict of
     path -> tensor is a tree too)."""
-    return torch.sqrt(sum(torch.square(g.float()).sum()
-                          for g in flatten(tree).values()))
-
-
-def _leaf(p, g, m, v, scale, c1, c2, rl: RLConfig):
-    """One leaf's update, as the reference: (new p, new m, new v)."""
-    b1, b2, eps = rl.adam_b1, rl.adam_b2, rl.adam_eps
-    g = g.float() * scale
-    m = b1 * m + (1 - b1) * g
-    v = b2 * v + (1 - b2) * torch.square(g)
-    step = rl.learning_rate * (m / c1) / (torch.sqrt(v / c2) + eps)
-    if rl.weight_decay:
-        step = step + rl.learning_rate * rl.weight_decay * p.float()
-    return (p.float() - step).to(p.dtype), m, v
+    return adam_ops.global_norm(list(flatten(tree).values()))
 
 
 @torch.no_grad()
@@ -85,29 +81,25 @@ def adam_update(grads, state: OptState, params, rl: RLConfig, *,
     flat_m, flat_v = flatten(state["m"]), flatten(state["v"])
     if gnorm is None:
         gnorm = global_norm(flat_g)
-    scale = torch.clamp(rl.max_grad_norm / (gnorm + 1e-9), max=1.0)
     t = state["t"] + 1
-    tf = t.float()
-    c1 = 1.0 - torch.pow(rl.adam_b1, tf)
-    c2 = 1.0 - torch.pow(rl.adam_b2, tf)
-
-    def keep(new, old):
-        return new if apply is None else torch.where(apply, new, old)
-
-    new_p = {}
-    for k, p in flat_p.items():
-        p2, m2, v2 = _leaf(p, flat_g[k], flat_m[k], flat_v[k], scale, c1,
-                           c2, rl)
-        flat_m[k].copy_(keep(m2, flat_m[k]))
-        flat_v[k].copy_(keep(v2, flat_v[k]))
-        if donate_params:
-            p.copy_(keep(p2, p))
-        else:
-            new_p[k] = keep(p2, p)
-    state["t"].copy_(keep(t, state["t"]))
+    keys = list(flat_p)
+    outs = [flat_p[k] if donate_params else torch.empty_like(flat_p[k])
+            for k in keys]
+    fused, plain = adam_ops.adam_update(
+        [flat_p[k] for k in keys], [flat_g[k] for k in keys],
+        [flat_m[k] for k in keys], [flat_v[k] for k in keys], outs, gnorm,
+        t, apply, lr=rl.learning_rate, b1=rl.adam_b1, b2=rl.adam_b2,
+        eps=rl.adam_eps, weight_decay=rl.weight_decay,
+        max_norm=rl.max_grad_norm)
+    state["t"].copy_(t if apply is None else torch.where(apply, t,
+                                                         state["t"]))
+    tracer = get_tracer()
+    if tracer is not None:
+        tracer.counter("adam_update", fused_elems=fused, plain_elems=plain)
     if donate_params:
         return params, state, gnorm
+    new_p = unflatten(dict(zip(keys, outs)))
     if isinstance(params, ParamTree):
         grad = any(p.requires_grad for p in flat_p.values())
-        return ParamTree(unflatten(new_p), requires_grad=grad), state, gnorm
-    return unflatten(new_p), state, gnorm
+        return ParamTree(new_p, requires_grad=grad), state, gnorm
+    return new_p, state, gnorm

@@ -277,9 +277,9 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     srcs = _build.sources()
     assert set(srcs) == {"paged_decode_attn", "paged_prefill_attn",
                          "a3po_loss", "token_logprob_entropy",
-                         "decode_attn", "flash_attn", "ssd"}
+                         "decode_attn", "flash_attn", "ssd", "adam"}
     targets = {_build._target(n).name for n in srcs}
-    assert len(targets) == 7
+    assert len(targets) == 8
     assert all(t.startswith("lib") and t.endswith(".so") for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -1151,6 +1151,12 @@ def test_cuda_logprob_vs_plain(cuda_device, T, d, V, dtype, layout, wgmma):
     assert lops.LAUNCHES["backward"] - b0 == -(-T // lops.CHUNK)
     assert lops.LAUNCHES["backward_wgmma"] - bw0 == \
         int(wgmma) * -(-T // lops.CHUNK)
+    # dw is laid out as w: the tied embedding's gradient comes back in the
+    # embedding's own (contiguous) layout
+    lp, _ = lops.token_logprob_entropy(hk, wk if layout == "dv" else wk.T,
+                                       tt)
+    (gw,) = torch.autograd.grad(lp.sum(), [wk])
+    assert gw.is_contiguous()
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ def _port(jparams, requires_grad=False):
 
 
 def _leaves(tree):
-    return {"/".join(p): np.asarray(v.detach() if hasattr(v, "detach")
+    return {"/".join(p): np.asarray(v.detach().cpu() if hasattr(v, "detach")
                                     else v, np.float32)
             for p, v in walk(tree)}
 

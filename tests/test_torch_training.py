@@ -12,6 +12,11 @@ assembly, remat, parameter donation, checkpoints across packages, and the
 serving engine's no-autograd guarantee.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
 
 import jax
@@ -29,6 +34,7 @@ from repro.training import optimizer as jopt
 from repro.training import trainer as jtrainer
 from repro_torch.configs.base import RLConfig
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels.adam import ops as aops
 from repro_torch.models.params import ParamTree, from_jax, walk
 from repro_torch.obs.metrics import get_registry
 from repro_torch.rollout.continuous import ContinuousBatchingEngine
@@ -256,6 +262,203 @@ def test_adam_in_place_and_gate():
     opt.adam_update(g, st, tp, trl, donate_params=True)
     assert int(st["t"]) == 1
     assert not torch.equal(opt.flatten(tp)["c"], before["c"])
+
+
+def _adam_case(seed, dtype, sizes=((3, 4), (4,), (5, 2), (1,), (37,))):
+    """A flat tree of weights, gradients and warmed moments (t = 2)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32))
+    keys = [f"l{i}" for i in range(len(sizes))]
+    p = {k: draw(sh).to(dtype) for k, sh in zip(keys, sizes)}
+    g = {k: draw(sh, 0.3).to(dtype) for k, sh in zip(keys, sizes)}
+    m = {k: draw(sh, 0.01) for k, sh in zip(keys, sizes)}
+    v = {k: draw(sh, 0.01).square() for k, sh in zip(keys, sizes)}
+    return p, g, m, v
+
+
+def _clone(d):
+    return {k: x.clone() for k, x in d.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("apply", [True, False])
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adam_cases_match_jax(weight_decay, clip, apply, donate, dtype):
+    """Two updates from a warmed state (t = 2) through ``adam_update``
+    (off the card the plain version, ``kernels/adam/ref.py``) against
+    JAX's: the norm, moments, t and weights (bf16: within 1 ulp), with
+    the clip active or not, weight decay or not, the weights donated or
+    not, bf16 or float32 leaves; with the gate shut nothing moves."""
+    base = dict(learning_rate=1e-2, weight_decay=weight_decay,
+                max_grad_norm=0.5 if clip else 1e3)
+    jrl, rl = JaxRLConfig(**base), RLConfig(**base)
+    p, g, m, v = _adam_case(7, dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def to_jax(d, dt=jnp.float32):
+        return {k: jnp.asarray(x.float().numpy()).astype(dt)
+                for k, x in d.items()}
+    jp, jg = to_jax(p, jdt), to_jax(g, jdt)
+    js = {"m": to_jax(m), "v": to_jax(v), "t": jnp.asarray(2, jnp.int32)}
+    st = {"m": _clone(m), "v": _clone(v),
+          "t": torch.tensor(2, dtype=torch.int32)}
+    gate = torch.tensor(apply)
+    tp = _clone(p)
+    for _ in range(2):
+        given = tp
+        tp, st, gn = opt.adam_update(g, st, tp, rl, donate_params=donate,
+                                     apply=gate)
+        assert (tp is given) == donate
+        jp, js, jn = jopt.adam_update(jg, js, jp, jrl)
+        assert (float(gn) > rl.max_grad_norm) == clip
+        np.testing.assert_allclose(float(gn), float(jn), rtol=1e-6)
+    assert int(st["t"]) == (int(js["t"]) if apply else 2)
+    for k in p:
+        assert tp[k].dtype == dtype
+        if not apply:
+            assert torch.equal(tp[k], p[k]), k
+            assert torch.equal(st["m"][k], m[k]), k
+            assert torch.equal(st["v"][k], v[k]), k
+            continue
+        for key in ("m", "v"):
+            np.testing.assert_allclose(st[key][k].numpy(),
+                                       np.asarray(js[key][k]), rtol=1e-6,
+                                       atol=1e-9, err_msg=f"{key} {k}")
+        want = torch.from_numpy(np.array(jp[k].astype(jnp.float32)))
+        if dtype == torch.bfloat16:
+            assert bool(((tp[k].float() - want).abs()
+                         <= _bf16_ulp(want)).all()), k
+        else:
+            np.testing.assert_allclose(tp[k].numpy(), want.numpy(),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+    assert any(not torch.equal(tp[k], p[k]) for k in p) == apply
+
+
+def test_adam_counter_reports_the_plain_elements():
+    """Off the card every element takes the plain version: the installed
+    tracer's ``adam_update`` counter reads them under ``plain_elems``,
+    one sample an update, and nothing is launched."""
+    from repro_torch.obs.tracing import SpanTracer, install_tracer
+    rl = RLConfig(learning_rate=1e-2, max_grad_norm=0.5)
+    p, g, _, _ = _adam_case(8, torch.float32)
+    total = sum(x.numel() for x in p.values())
+    n0 = dict(aops.LAUNCHES)
+    tracer = install_tracer(SpanTracer())
+    try:
+        st = opt.adam_init(p)
+        new, st, _ = opt.adam_update(g, st, p, rl)
+        opt.adam_update(g, st, new, rl, donate_params=True)
+    finally:
+        install_tracer(None)
+    samples = [e["args"] for e in tracer.events()
+               if e["ph"] == "C" and e["name"] == "adam_update"]
+    assert samples == [{"fused_elems": 0.0, "plain_elems": float(total)}] * 2
+    assert aops.LAUNCHES == n0
+
+
+_DTENSOR_ADAM = textwrap.dedent("""
+    import json, socket, sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    def run(rank, port, path):
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard, distribute_tensor)
+        from repro_torch.configs.base import RLConfig
+        from repro_torch.obs.tracing import SpanTracer, install_tracer
+        from repro_torch.training import optimizer as opt
+        mesh = init_device_mesh("cpu", (2,))
+        gen = torch.Generator().manual_seed(5)
+        shapes = {"a": (5, 3), "b": (4,), "c": (6, 2)}
+        place = {"a": [Shard(0)], "b": [Replicate()], "c": [Shard(1)]}
+        full = {n: {k: torch.randn(s, generator=gen) * sc
+                    for k, s in shapes.items()}
+                for n, sc in (("p", 1.0), ("g", 0.3), ("m", 0.01),
+                              ("v", 0.01))}
+        full["v"] = {k: x.square() for k, x in full["v"].items()}
+        rl = RLConfig(learning_rate=1e-2, weight_decay=0.1,
+                      max_grad_norm=0.5)
+        want_p = {k: x.clone() for k, x in full["p"].items()}
+        want_st = {"m": {k: x.clone() for k, x in full["m"].items()},
+                   "v": {k: x.clone() for k, x in full["v"].items()},
+                   "t": torch.tensor(1, dtype=torch.int32)}
+        for _ in range(2):
+            want_p, want_st, want_gn = opt.adam_update(full["g"], want_st,
+                                                       want_p, rl)
+
+        def shard(n):
+            return {k: distribute_tensor(x.clone(), mesh, place[k])
+                    for k, x in full[n].items()}
+        p, m, v = shard("p"), shard("m"), shard("v")
+        # "a" placed as its weight, "b" a partial sum (halves), "c"
+        # replicated where its weight is sharded
+        g = {"a": distribute_tensor(full["g"]["a"], mesh, [Shard(0)]),
+             "b": DTensor.from_local(full["g"]["b"] / 2, mesh, [Partial()],
+                                     run_check=False),
+             "c": distribute_tensor(full["g"]["c"], mesh, [Replicate()])}
+        st = {"m": m, "v": v, "t": torch.tensor(1, dtype=torch.int32)}
+        tracer = install_tracer(SpanTracer())
+        for i in range(2):
+            p, st, gn = opt.adam_update(g, st, p, rl, donate_params=i == 1)
+        install_tracer(None)
+        errs = []
+        for got, want in ((p, want_p), (st["m"], want_st["m"]),
+                          (st["v"], want_st["v"])):
+            for k, x in got.items():
+                errs.append(float(((x.full_tensor() - want[k]).abs()
+                                   / (1e-7 + 1e-6 * want[k].abs())).max()))
+        out = {"gn": float(gn), "want_gn": float(want_gn),
+               "t": int(st["t"]), "err": max(errs),
+               "placed": all(x.placements == tuple(place[k])
+                             for k, x in p.items()),
+               "counter": [e["args"] for e in tracer.events()
+                           if e["ph"] == "C"],
+               "local": sum(x.to_local().numel() for x in p.values())}
+        with open(f"{path}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        mp.spawn(run, args=(port, sys.argv[1]), nprocs=2)
+""")
+
+
+def test_adam_dtensor_leaves_update_their_shards(tmp_path):
+    """On two gloo ranks, ``DTensor`` leaves (sharded by rows unevenly, by
+    columns, replicated; one gradient a partial sum, one placed otherwise
+    than its weight) take the update shard by shard and the norm as the
+    sum of the shards' squares: two updates equal the plain tensors'
+    within rtol 1e-6 and keep the weights' placements, and the counter
+    reads each rank's local elements."""
+    script = tmp_path / "dtensor_adam.py"
+    script.write_text(_DTENSOR_ADAM)
+    out = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    files = sorted(tmp_path.glob("rank*.json"))
+    assert len(files) == 2, out.stdout[-2000:] + out.stderr[-4000:]
+    ranks = [json.loads(f.read_text()) for f in files]
+    # rank 0 holds rows 0-2 of "a" and column 0 of "c", rank 1 the rest
+    assert [r["local"] for r in ranks] == [9 + 4 + 6, 6 + 4 + 6]
+    for r in ranks:
+        assert r["t"] == 3 and r["placed"], r
+        assert abs(r["gn"] - r["want_gn"]) <= 1e-6 * r["want_gn"], r
+        assert r["err"] <= 1.0, r
+        assert r["counter"] == [{"fused_elems": 0.0,
+                                 "plain_elems": float(r["local"])}] * 2, r
 
 
 def _rollouts(seed, n, P, N, per_token):
@@ -566,3 +769,158 @@ def test_step_on_card_matches_cpu(cuda_device, toy):
                                    atol=1e-5, err_msg=k)
     for k, v in outs[0][1].items():
         torch.testing.assert_close(outs[1][1][k], v, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_step_on_card_fuses_every_leaf(cuda_device, toy):
+    """``Trainer.step`` on the card sends every leaf through the Adam
+    kernels: each minibatch one norm (two launches) and one update launch,
+    and the tracer's ``adam_update`` counter reads ``plain_elems`` 0."""
+    from repro_torch.obs.tracing import SpanTracer, install_tracer
+    _, jparams, tcfg = toy
+    params = from_jax(jax.device_get(jparams), device=cuda_device,
+                      requires_grad=True)
+    _, tb = _batches(_batch_arrays(13, True))
+    tb = tr.TrainBatch(*(getattr(tb, f.name).to(cuda_device)
+                         for f in dataclasses.fields(tb)))
+    state = tr.TrainState(params, opt.adam_init(params),
+                          torch.zeros((), dtype=torch.int32,
+                                      device=cuda_device))
+    rl = RLConfig(group_size=4)
+    n0 = dict(aops.LAUNCHES)
+    tracer = install_tracer(SpanTracer())
+    try:
+        tr.Trainer(tcfg, rl, "a3po").step(state, tb)
+    finally:
+        install_tracer(None)
+    total = sum(p.numel() for p in opt.flatten(params).values())
+    samples = [e["args"] for e in tracer.events()
+               if e["ph"] == "C" and e["name"] == "adam_update"]
+    assert samples == [{"fused_elems": float(total), "plain_elems": 0.0}
+                       ] * rl.num_minibatches
+    assert (aops.LAUNCHES["norm"] - n0["norm"],
+            aops.LAUNCHES["update"] - n0["update"]) == (
+        2 * rl.num_minibatches, rl.num_minibatches)
+
+
+def _on_card(x, dev, offset=0):
+    """``x`` on the card, ``offset`` elements past an allocation's start
+    (offset 1 breaks 16-byte alignment: the kernels' scalar loop)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+ADAM_RAGGED = (1, 7, 8, 9, 4095, 2 ** 16 + 3, 2 * 2 ** 16 + 13, 300_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,gdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16_f32grad"])
+@pytest.mark.parametrize("sizes", [ADAM_RAGGED,
+                                   tuple(37 * i % 1000 + 1
+                                         for i in range(70))],
+                         ids=["ragged", "many"])
+def test_adam_kernels_match_plain_on_card(cuda_device, dtype, gdtype,
+                                          sizes):
+    """The norm and update kernels against their plain version on the card
+    over three updates (t and the bias corrections advance): the norm
+    within rtol 1e-6 and bit-equal on a second launch, m and v within rtol
+    1e-6, weights within 1 bf16 ulp (float32: rtol 1e-6). Weights and
+    gradients of one dtype, or float32 gradients of bf16 weights (the step
+    programs' accumulators). Sizes that are no multiple of the 8-element
+    vector, a 1-element leaf, leaves cut into several chunks, one leaf off
+    16-byte alignment, or more leaves than one argument table holds (two
+    launches). Then the gate shut: nothing of the state moves, and a
+    separate output gets the weights."""
+    from repro_torch.kernels.adam import kernel as akernel
+    from repro_torch.kernels.adam.ref import adam_update_ref, global_norm_ref
+    hp = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+              max_norm=1.0)
+    gen = torch.Generator().manual_seed(30)
+
+    def draw(n, s, dt):
+        return (torch.randn(n, generator=gen) * s).to(dt)
+    off = [int(i == 2) for i in range(len(sizes))]
+    ps = [_on_card(draw(n, 1.0, dtype), cuda_device, o)
+          for n, o in zip(sizes, off)]
+    ms = [_on_card(torch.zeros(n), cuda_device, o)
+          for n, o in zip(sizes, off)]
+    vs = [_on_card(torch.zeros(n), cuda_device, o)
+          for n, o in zip(sizes, off)]
+    rps, rms, rvs = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    tables = -(-len(sizes) // akernel.max_leaves())
+    t = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    for step in range(3):
+        gs = [_on_card(draw(n, 0.05 * (step + 1), gdtype), cuda_device, o)
+              for n, o in zip(sizes, off)]
+        n0 = dict(aops.LAUNCHES)
+        gn = aops.global_norm(gs)
+        assert torch.equal(aops.global_norm(gs), gn)
+        torch.testing.assert_close(gn, global_norm_ref(gs), rtol=1e-6,
+                                   atol=0)
+        t_new = t + 1
+        aops.adam_update(ps, gs, ms, vs, ps, gn, t_new, None, **hp)
+        adam_update_ref(rps, gs, rms, rvs, rps, gn, t_new, None, **hp)
+        assert (aops.LAUNCHES["norm"] - n0["norm"],
+                aops.LAUNCHES["update"] - n0["update"]) == (
+            2 * (tables + 1), tables)
+        t.copy_(t_new)
+        for i in range(len(sizes)):
+            torch.testing.assert_close(ms[i], rms[i], rtol=1e-6, atol=1e-12)
+            torch.testing.assert_close(vs[i], rvs[i], rtol=1e-6, atol=1e-12)
+            if dtype == torch.bfloat16:
+                gap = (ps[i].float() - rps[i].float()).abs()
+                assert bool((gap <= _bf16_ulp(rps[i])).all()), (step, i)
+            else:
+                torch.testing.assert_close(ps[i], rps[i], rtol=1e-6,
+                                           atol=1e-12)
+    shut = torch.tensor(False, device=cuda_device)
+    before = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+    outs = [torch.full_like(p, float("nan")) for p in ps]
+    aops.adam_update(ps, gs, ms, vs, outs, gn, t + 1, shut, **hp)
+    aops.adam_update(ps, gs, ms, vs, ps, gn, t + 1, shut, **hp)
+    for xs, ys in zip((ps, ms, vs, outs), before + [before[0]]):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+@pytest.mark.cuda
+def test_adam_on_card_copies_or_refuses(cuda_device):
+    """On the card there is no plain path: a transposed gradient (the tied
+    embedding's, laid out as its weight's transpose) is read through a
+    contiguous copy, bit-equal to the contiguous gradient's update; a
+    float16 weight and a non-contiguous weight raise. The kernels' writes
+    bump the version counters of the moments and the weights."""
+    hp = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+              max_norm=1.0)
+    gen = torch.Generator().manual_seed(31)
+    p = torch.randn(48, 40, generator=gen).to(cuda_device, torch.bfloat16)
+    gt = (torch.randn(40, 48, generator=gen) * 0.1).to(cuda_device,
+                                                       torch.bfloat16).T
+    t = torch.ones((), dtype=torch.int32, device=cuda_device)
+    res = []
+    for g in (gt, gt.contiguous()):
+        m, v = torch.zeros_like(p, dtype=torch.float32), torch.zeros_like(
+            p, dtype=torch.float32)
+        gn = aops.global_norm([g])
+        out = torch.empty_like(p)
+        versions = (m._version, v._version, out._version)
+        assert aops.adam_update([p], [g], [m], [v], [out], gn, t,
+                                **hp) == (p.numel(), 0)
+        assert all(x._version > n for x, n in zip((m, v, out), versions))
+        res.append((gn, out, m, v))
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+    m, v = res[0][2], res[0][3]
+    with pytest.raises(ValueError, match="no kernel"):
+        aops.adam_update([p.half()], [gt.half()], [m], [v], [p.half()],
+                         res[0][0], t, **hp)
+    with pytest.raises(ValueError, match="no kernel"):
+        aops.adam_update([p.T], [gt.T], [m.T], [v.T], [p.T], res[0][0], t,
+                         **hp)
